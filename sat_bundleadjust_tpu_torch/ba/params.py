@@ -1,0 +1,248 @@
+"""Bundle adjustment parameterization (rpc camera model).
+
+Counterpart of `sat_bundleadjust_tpu/ba/params.py`. Turns the pipeline's
+problem description (correspondence matrix C, initial tie points, RPC
+cameras) into the flat observation table the solver consumes, and back.
+This is host-side bookkeeping in numpy; the solver moves what it needs to
+the device.
+
+Camera parameter layout (rpc): [euler (3), T (3), C (3)] — a corrective
+rotation and translation about the fixed camera center C.
+"""
+
+import numpy as np
+
+from sat_bundleadjust_tpu_torch.models.rpc import stack_rpcs
+
+_MATRIX_MODELS_TODO = (
+    "cam_model {!r} is not ported yet: the affine and perspective camera models "
+    "come in a later slice of the port (see ROADMAP.md)"
+)
+
+
+def load_cam_params_from_camera(camera, camera_center, cam_model):
+    """Per-camera parameter vector: the rpc correction starts at identity."""
+    if cam_model != "rpc":
+        raise NotImplementedError(_MATRIX_MODELS_TODO.format(cam_model))
+    return np.hstack((np.zeros(6), np.asarray(camera_center, np.float64).ravel()))
+
+
+class BAParams:
+    """The bundle adjustment problem state.
+
+    Args:
+      C: (2M, N) correspondence matrix (NaN where unobserved)
+      pts3d: (N, 3) initial ECEF tie points
+      cameras: list of M RPCModel (numpy fields)
+      cam_model: "rpc"
+      pairs_to_triangulate: list of camera index pairs
+      camera_centers: list of (3,) arrays
+      d: optional dict with n_cam_fix, n_pts_fix, reduce, verbose,
+         correction_params (subset of R/T), ref_cam_weight
+    """
+
+    def __init__(self, C, pts3d, cameras, cam_model, pairs_to_triangulate, camera_centers, d=None):
+        if cam_model != "rpc":
+            raise NotImplementedError(_MATRIX_MODELS_TODO.format(cam_model))
+        d = d or {}
+        self.C = np.array(C, dtype=np.float64)
+        self.pts3d = np.array(pts3d, dtype=np.float64)
+        self.cameras = list(cameras)
+        self.cam_model = cam_model
+        self.pairs_to_triangulate = list(pairs_to_triangulate)
+        self.camera_centers = [np.asarray(c) for c in camera_centers]
+
+        self.cam_params_to_optimize = d.get("correction_params", ["R"])
+        self.ref_cam_weight = float(d.get("ref_cam_weight", 1.0))
+        self.n_cam_fix = int(d.get("n_cam_fix", 0))
+        self.n_pts_fix = int(d.get("n_pts_fix", 0))
+        self.verbose = bool(d.get("verbose", True))
+        reduce = bool(d.get("reduce", True))
+
+        self.n_cam, self.n_pts = self.C.shape[0] // 2, self.C.shape[1]
+        self.n_cam_opt = self.n_cam - self.n_cam_fix
+        self.n_pts_opt = self.n_pts - self.n_pts_fix
+        self.cam_prev_indices = np.arange(self.n_cam)
+        self.pts_prev_indices = np.arange(self.n_pts)
+        if reduce:
+            self._reduce()
+
+        self.cam_params = np.array(
+            [load_cam_params_from_camera(c, oC, cam_model)
+             for c, oC in zip(self.cameras, self.camera_centers)]
+        )
+
+        # flat observation table in point-major (point, camera) order
+        mask = ~np.isnan(self.C[::2, :])  # (M, N)
+        pt_idx, c_idx = np.nonzero(mask.T)
+        self.pts_ind = pt_idx.astype(np.int32)
+        self.cam_ind = c_idx.astype(np.int32)
+        cols = self.C[2 * self.cam_ind, self.pts_ind]
+        rows = self.C[2 * self.cam_ind + 1, self.pts_ind]
+        self.pts2d = np.stack([cols, rows], axis=1)
+        self.n_obs = self.pts2d.shape[0]
+
+        # camera 0 may be a weighted reference camera
+        self.pts2d_w = np.ones(self.n_obs)
+        if self.ref_cam_weight > 1.0:
+            self.pts2d_w[self.cam_ind == 0] = self.ref_cam_weight
+
+        self._set_param_layout()
+
+        if self.verbose:
+            print("\nDefining bundle adjustment parameters...")
+            print("     - cam_params_to_optimize: {}".format(self.cam_params_to_optimize))
+            print("{} 3d points, {} fixed and {} to be optimized".format(self.n_pts, self.n_pts_fix, self.n_pts_opt))
+            print("{} cameras, {} fixed and {} to be optimized".format(self.n_cam, self.n_cam_fix, self.n_cam_opt))
+            print("{} parameters to optimize per camera\n".format(self.n_params))
+
+    def _set_param_layout(self):
+        """Number of optimized parameters, frozen-entity masks and the
+        stacked RPCs; shared by both constructors."""
+        n_params = 0
+        self.n_params_k = 0
+        if "R" in self.cam_params_to_optimize:
+            n_params += 3
+            if "T" in self.cam_params_to_optimize:
+                n_params += 3
+                if "K" in self.cam_params_to_optimize:
+                    self.n_params_k = 5
+                    n_params += self.n_params_k
+        self.n_params = n_params
+        self.common_k = self.n_params_k > 0 and "COMMON_K" in self.cam_params_to_optimize
+
+        self.cam_opt_mask = np.ones(self.n_cam)
+        self.cam_opt_mask[: self.n_cam_fix] = 0.0
+        self.pts_opt_mask = np.ones(self.n_pts)
+        self.pts_opt_mask[: self.n_pts_fix] = 0.0
+
+        # host copy of the batched RPCs; the solver moves it to its device
+        self.rpcs = stack_rpcs(self.cameras, "cpu")
+
+        self.pts3d_ba = None
+        self.cameras_ba = None
+        self.estimated_params = None
+
+    @classmethod
+    def from_obs_table(cls, pts_ind, cam_ind, pts2d, pts3d, cameras, cam_model,
+                       camera_centers, pairs_to_triangulate=None, d=None):
+        """Construction from a flat observation table, without a dense C
+        matrix. The table is sorted to the C path's (point, camera) order,
+        so both constructors give identical problems. No reduce pass:
+        callers pass tables in which every track is observed by an
+        optimizable camera."""
+        if cam_model != "rpc":
+            raise NotImplementedError(_MATRIX_MODELS_TODO.format(cam_model))
+        self = cls.__new__(cls)
+        d = d or {}
+        self.C = None
+        self.pts3d = np.array(pts3d, dtype=np.float64)
+        self.cameras = list(cameras)
+        self.cam_model = cam_model
+        self.pairs_to_triangulate = list(pairs_to_triangulate or [])
+        self.camera_centers = [np.asarray(c) for c in camera_centers]
+
+        self.cam_params_to_optimize = d.get("correction_params", ["R"])
+        self.ref_cam_weight = float(d.get("ref_cam_weight", 1.0))
+        self.n_cam_fix = int(d.get("n_cam_fix", 0))
+        self.n_pts_fix = int(d.get("n_pts_fix", 0))
+        self.verbose = bool(d.get("verbose", False))
+
+        self.n_cam = len(self.cameras)
+        self.n_pts = int(self.pts3d.shape[0])
+        self.n_cam_opt = self.n_cam - self.n_cam_fix
+        self.n_pts_opt = self.n_pts - self.n_pts_fix
+        self.cam_prev_indices = np.arange(self.n_cam)
+        self.pts_prev_indices = np.arange(self.n_pts)
+
+        self.cam_params = np.array(
+            [load_cam_params_from_camera(c, oC, cam_model)
+             for c, oC in zip(self.cameras, self.camera_centers)]
+        )
+
+        order = np.lexsort((np.asarray(cam_ind), np.asarray(pts_ind)))
+        self.pts_ind = np.asarray(pts_ind, np.int32)[order]
+        self.cam_ind = np.asarray(cam_ind, np.int32)[order]
+        self.pts2d = np.asarray(pts2d, np.float64)[order]
+        self.n_obs = self.pts2d.shape[0]
+        self.pts2d_w = np.ones(self.n_obs)
+        if self.ref_cam_weight > 1.0:
+            self.pts2d_w[self.cam_ind == 0] = self.ref_cam_weight
+
+        self._set_param_layout()
+        return self
+
+    def _reduce(self):
+        """Drop tracks with no observation in the optimized cameras, then
+        cameras left with no observation."""
+        C = self.C
+        cols_where_obs = (
+            np.sum(~np.isnan(C[::2, :])[-self.n_cam_opt:], axis=0).astype(bool)
+            if self.n_cam_opt > 0
+            else np.zeros(C.shape[1], dtype=bool)
+        )
+        self.pts_prev_indices = np.arange(self.n_pts)[cols_where_obs]
+        self.n_pts_fix -= int(np.sum(~cols_where_obs[: self.n_pts_fix]))
+        self.C = C[:, cols_where_obs].copy()
+        self.pts3d = self.pts3d[self.pts_prev_indices, :].copy()
+
+        obs_per_cam = np.sum(~np.isnan(self.C[::2]), axis=1)
+        cams_to_keep = obs_per_cam > 0
+        self.cam_prev_indices = np.arange(self.n_cam)[cams_to_keep]
+        self.C = self.C[np.repeat(cams_to_keep, 2), :]
+        old_n_cam_fix = self.n_cam_fix
+        self.n_cam = int(self.C.shape[0] // 2)
+        self.n_pts = int(self.C.shape[1])
+        self.n_cam_fix -= int(np.sum(~cams_to_keep[:old_n_cam_fix]))
+        self.n_cam_opt = self.n_cam - self.n_cam_fix
+        self.n_pts_opt = self.n_pts - self.n_pts_fix
+        self.cameras = [self.cameras[i] for i in self.cam_prev_indices]
+        self.camera_centers = [self.camera_centers[i] for i in self.cam_prev_indices]
+
+        new_idx = np.full(len(cams_to_keep), -1)
+        new_idx[cams_to_keep] = np.arange(int(np.sum(cams_to_keep)))
+        pairs = []
+        for (a, b) in self.pairs_to_triangulate:
+            if a < len(cams_to_keep) and b < len(cams_to_keep) and cams_to_keep[a] and cams_to_keep[b]:
+                pairs.append((int(new_idx[a]), int(new_idx[b])))
+        self.pairs_to_triangulate = pairs
+
+    def opt_block(self):
+        """Initial optimized camera block (M, n_params)."""
+        return self.cam_params[:, : self.n_params].copy()
+
+    def full_cam_params(self, cam_opt):
+        """Optimized prefix + constant tail -> (M, 9)."""
+        return np.hstack([np.asarray(cam_opt), self.cam_params[:, self.n_params:]])
+
+    def reconstruct_vars(self, cam_opt, pts3d_ba, pts3d_init, cameras_init):
+        """Camera models and corrected points from the solution, in the
+        original (pre-reduce) indexing: (corrected_pts3d, corrected_cameras).
+        cam_opt and pts3d_ba may be tensors on any device."""
+        cam_params = self.full_cam_params(_to_numpy(cam_opt))
+        self.pts3d_ba = _to_numpy(pts3d_ba)
+        self.cameras_ba = [cam_params[i].reshape(1, 9) for i in range(self.n_cam)]
+
+        self.estimated_params = []
+        for i in range(self.n_cam):
+            est = {}
+            if "R" in self.cam_params_to_optimize:
+                est["R"] = cam_params[i, :3]
+            if "T" in self.cam_params_to_optimize:
+                est["T"] = cam_params[i, 3:6]
+            est["C"] = cam_params[i, 6:9]
+            self.estimated_params.append(est)
+
+        corrected_pts3d = np.array(pts3d_init, dtype=np.float64, copy=True)
+        corrected_cameras = list(cameras_init)
+        for ba_idx, prev_idx in enumerate(self.pts_prev_indices):
+            corrected_pts3d[prev_idx] = self.pts3d_ba[ba_idx]
+        for ba_idx, prev_idx in enumerate(self.cam_prev_indices):
+            corrected_cameras[prev_idx] = self.cameras_ba[ba_idx]
+        return corrected_pts3d, corrected_cameras
+
+
+def _to_numpy(a):
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)

@@ -1,0 +1,171 @@
+"""Bundle adjustment solve driver (rpc camera model).
+
+Counterpart of `sat_bundleadjust_tpu/ba/solver.py`: residual and Jacobian
+closures over the observation table of a BAParams problem, the LMProblem
+structure, and the Levenberg-Marquardt engine of ops/lm.py. The
+optimization keys mirror the reference's (loss, ftol, xtol, f_scale,
+max_iter, verbose).
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.models.rpc import map_rpc
+from sat_bundleadjust_tpu_torch.ops import lm as lm_ops
+from sat_bundleadjust_tpu_torch.ops.fastgeo import anchors_from_rpcs
+from sat_bundleadjust_tpu_torch.ops.jacobians import residuals_and_jacobians_rpc, residuals_rpc
+
+
+def init_optimization_config(config=None):
+    """Defaults identical to the reference's."""
+    keys = ["loss", "ftol", "xtol", "f_scale", "max_iter", "verbose"]
+    defaults = ["linear", 1e-4, 1e-10, 1.0, 300, 1]
+    out = dict(zip(keys, defaults))
+    if config:
+        for k in keys:
+            if k in config:
+                out[k] = config[k]
+    return out
+
+
+def make_fns(p, device, jac_dtype=torch.float32):
+    """(residual_fn, jac_fn) over the observation table of a BAParams, on
+    device: residual_fn(cam_opt, pts3d) -> r (K, 2) f64; jac_fn -> (r,
+    J_cam, J_pt) with the Jacobians in jac_dtype."""
+    dev = torch.device(device)
+    n_params = p.n_params
+    f64 = torch.float64
+    cam_tail = torch.as_tensor(p.cam_params[:, n_params:], dtype=f64, device=dev)
+    pts_ind = torch.as_tensor(p.pts_ind, dtype=torch.int64, device=dev)
+    cam_ind = torch.as_tensor(p.cam_ind, dtype=torch.int64, device=dev)
+    pts2d = torch.as_tensor(p.pts2d, dtype=f64, device=dev)
+    w = torch.as_tensor(p.pts2d_w, dtype=f64, device=dev)
+    rpcs = map_rpc(lambda f: f.to(dev), p.rpcs)
+    anchors = anchors_from_rpcs(rpcs)
+
+    def residual_fn(cam_opt, pts3d):
+        full_cam = torch.cat([cam_opt, cam_tail], dim=1)
+        return residuals_rpc(pts3d, rpcs, full_cam, pts_ind, cam_ind, pts2d, w, anchors)
+
+    def jac_fn(cam_opt, pts3d):
+        full_cam = torch.cat([cam_opt, cam_tail], dim=1)
+        return residuals_and_jacobians_rpc(
+            pts3d, rpcs, full_cam, pts_ind, cam_ind, pts2d, w, n_params, anchors,
+            jac_dtype=jac_dtype,
+        )
+
+    return residual_fn, jac_fn
+
+
+def build_problem(p, device, schur_mode=None):
+    """The LMProblem of a BAParams on device, and the Schur mode.
+
+    Default mode: "cg" on CUDA (as on any accelerator); on the CPU "dense"
+    up to 192 cameras, else "cg"."""
+    dev = torch.device(device)
+    if schur_mode is None:
+        if dev.type != "cpu":
+            schur_mode = "cg"
+        else:
+            schur_mode = "dense" if p.n_cam <= 192 else "cg"
+    pair_k1, pair_k2 = lm_ops.build_intra_track_pairs(p.pts_ind, p.n_pts)
+    pt_table = lm_ops.build_gather_segments(p.pts_ind, p.n_pts)
+    cam_table = lm_ops.build_gather_segments(p.cam_ind, p.n_cam)
+    # dual layouts only when their padding stays bounded (a dominant camera
+    # or track would blow the padded tables far beyond K slots)
+    K = p.n_obs
+    dual_ok = K > 0 and pt_table.size <= 4 * K and cam_table.size <= 4 * K
+
+    def idx(a, dtype=torch.int64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)
+
+    obs_at = None
+    if p.n_pts * p.n_cam <= 30_000_000:  # (N, M) table + (N, M, P, 3) transients
+        obs_at = lm_ops.build_obs_at(p.pts_ind, p.cam_ind, p.n_pts, p.n_cam)
+    prob = lm_ops.LMProblem(
+        pts_ind=idx(p.pts_ind),
+        cam_ind=idx(p.cam_ind),
+        pts2d=f64(p.pts2d),
+        weights=f64(p.pts2d_w),
+        cam_opt_mask=f64(p.cam_opt_mask),
+        pts_opt_mask=f64(p.pts_opt_mask),
+        pair_k1=idx(pair_k1),
+        pair_k2=idx(pair_k2),
+        pt_gather=idx(pt_table),
+        cam_gather=idx(cam_table),
+        obs_at=idx(obs_at) if obs_at is not None else None,
+        cam_ind_pt=idx(lm_ops.gather_table_values(pt_table, p.cam_ind, K, p.n_cam),
+                       torch.int32) if dual_ok else None,
+        pts_ind_cam=idx(lm_ops.gather_table_values(cam_table, p.pts_ind, K, p.n_pts),
+                        torch.int32) if dual_ok else None,
+    )
+    if schur_mode == "dense" and prob.obs_at is None and dev.type != "cpu":
+        # the pair-based dense assembly scatters Q = sum(track length^2)
+        # blocks with atomics; on the card use CG instead
+        schur_mode = "cg"
+    return prob, schur_mode
+
+
+class BASolver:
+    """Solver for one BAParams problem structure on one device: builds the
+    closures and the LMProblem once, for every round solved on it."""
+
+    def __init__(self, p, schur_mode=None, jac_dtype=None, device=None):
+        if getattr(p, "common_k", False):
+            raise NotImplementedError(
+                "COMMON_K (the tied-tail CG projector) is not ported yet (see ROADMAP.md)")
+        self.p = p
+        self.device = resolve_device(device)
+        self.residual_fn, self.jac_fn = make_fns(
+            p, self.device, jac_dtype=torch.float32 if jac_dtype is None else jac_dtype)
+        self.prob, self.mode = build_problem(p, self.device, schur_mode)
+
+    def config(self, ls_params=None):
+        ls = init_optimization_config(ls_params)
+        return lm_ops.LMConfig(
+            loss=ls["loss"],
+            f_scale=float(ls["f_scale"]),
+            max_iter=int(ls["max_iter"]),
+            ftol=float(ls["ftol"]),
+            xtol=float(ls["xtol"]),
+            schur_mode=self.mode,
+        )
+
+    def solve(self, ls_params=None, verbose=False):
+        """One LM solve from the problem's initial state. Returns
+        ((cam0, pts0), (cam, pts), err_init, err_ba, info)."""
+        cfg = self.config(ls_params)
+        cam0 = torch.as_tensor(self.p.opt_block(), dtype=torch.float64, device=self.device)
+        pts0 = torch.as_tensor(self.p.pts3d, dtype=torch.float64, device=self.device)
+        t0 = time.time()
+        cam, pts, info = lm_ops.solve(self.residual_fn, self.jac_fn, cam0, pts0, self.prob, cfg)
+        err_init = info.pop("err0")
+        err_ba = info.pop("err_fin")
+        info["wall_time"] = time.time() - t0
+        return (cam0, pts0), (cam, pts), err_init, err_ba, info
+
+
+def run_ba_optimization(p, ls_params=None, verbose=False, schur_mode=None, solver=None,
+                        jac_dtype=None, device=None):
+    """Solve the BA problem of a BAParams instance.
+
+    Returns (vars_init, vars_ba, err_init, err_ba, iterations), vars_* being
+    (cam_opt, pts3d) tensor tuples on the solver's device. Pass a BASolver
+    via `solver` to reuse its tables across rounds."""
+    if solver is None:
+        solver = BASolver(p, schur_mode=schur_mode, jac_dtype=jac_dtype, device=device)
+    (cam0, pts0), (cam, pts), err_init, err_ba, info = solver.solve(ls_params, verbose)
+    if verbose:
+        print("LM solve ({} mode): cost {:.6g} -> {:.6g} in {} iterations, {:.2f}s".format(
+            solver.mode, info["cost0"], info["cost"], info["iterations"], info["wall_time"]))
+        print("Reprojection error before BA (mean / median): {:.2f} / {:.2f}".format(
+            float(np.mean(err_init)), float(np.median(err_init))))
+        print("Reprojection error after  BA (mean / median): {:.2f} / {:.2f}".format(
+            float(np.mean(err_ba)), float(np.median(err_ba))))
+    return (cam0, pts0), (cam, pts), err_init, err_ba, info["iterations"]

@@ -1,0 +1,191 @@
+"""Rational Polynomial Camera (RPC) model as a container of tensors.
+
+Counterpart of `sat_bundleadjust_tpu/models/rpc.py:48-450`: the model,
+batching, the RPC00B monomial basis and its derivatives, projection, and
+localization by a fixed-count Newton iteration on the forward rational
+model. The file readers and writers are not ported yet.
+
+Monomial order (RPC00B, x = normalized lat, y = normalized lon,
+z = normalized alt):
+
+    1, y, x, z, yx, yz, xz, y^2, x^2, z^2,
+    xyz, y^3, yx^2, yz^2, y^2x, x^3, xz^2, y^2z, x^2z, z^3
+
+`col` is governed by (samp_num, samp_den), `row` by (line_num, line_den).
+"""
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+N_COEFFS = 20
+NEWTON_ITERS = 15  # fixed Newton iteration count for localization
+
+
+class RPCModel(NamedTuple):
+    """RPC camera model. Fields are tensors (or numpy arrays / floats for a
+    host-side description); leading dims broadcast."""
+
+    line_num: torch.Tensor  # (..., 20) row numerator
+    line_den: torch.Tensor  # (..., 20)
+    samp_num: torch.Tensor  # (..., 20) col numerator
+    samp_den: torch.Tensor  # (..., 20)
+    row_offset: torch.Tensor  # (...,)
+    col_offset: torch.Tensor
+    lat_offset: torch.Tensor
+    lon_offset: torch.Tensor
+    alt_offset: torch.Tensor
+    row_scale: torch.Tensor
+    col_scale: torch.Tensor
+    lat_scale: torch.Tensor
+    lon_scale: torch.Tensor
+    alt_scale: torch.Tensor
+
+
+def map_rpc(fn, rpc):
+    """Apply fn to every field of an RPCModel."""
+    return RPCModel(*[fn(f) for f in rpc])
+
+
+def stack_rpcs(rpcs, device):
+    """Stack a list of RPCModel into one batched float64 RPCModel on device
+    (leading dim M)."""
+    fields = zip(*[tuple(r) for r in rpcs])
+    return RPCModel(*[
+        torch.stack([torch.as_tensor(np.array(v, np.float64)) for v in vals]).to(device)
+        for vals in fields
+    ])
+
+
+def index_rpc(batched, idx):
+    """Gather per-item models from a batched RPCModel."""
+    return map_rpc(lambda f: f[idx], batched)
+
+
+# ----------------------------------------------------------------------
+# polynomial basis and derivatives
+# ----------------------------------------------------------------------
+
+
+def poly20_basis(x, y, z):
+    """Monomial basis (..., 20); x = normalized lat, y = lon, z = alt."""
+    one = torch.ones_like(x)
+    return torch.stack(
+        [
+            one, y, x, z, y * x, y * z, x * z, y * y, x * x, z * z,
+            x * y * z, y * y * y, y * x * x, y * z * z, y * y * x,
+            x * x * x, x * z * z, y * y * z, x * x * z, z * z * z,
+        ],
+        dim=-1,
+    )
+
+
+def poly20_basis_dx(x, y, z):
+    """d(basis)/dx (x = normalized lat)."""
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    return torch.stack(
+        [
+            zero, zero, one, zero, y, zero, z, zero, 2 * x, zero,
+            y * z, zero, 2 * x * y, zero, y * y, 3 * x * x, z * z, zero,
+            2 * x * z, zero,
+        ],
+        dim=-1,
+    )
+
+
+def poly20_basis_dy(x, y, z):
+    """d(basis)/dy (y = normalized lon)."""
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    return torch.stack(
+        [
+            zero, one, zero, zero, x, z, zero, 2 * y, zero, zero,
+            x * z, 3 * y * y, x * x, z * z, 2 * y * x, zero, zero,
+            2 * y * z, zero, zero,
+        ],
+        dim=-1,
+    )
+
+
+def poly20_basis_dz(x, y, z):
+    """d(basis)/dz (z = normalized alt)."""
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    return torch.stack(
+        [
+            zero, zero, zero, one, zero, y, x, zero, zero, 2 * z,
+            x * y, zero, zero, 2 * y * z, zero, zero, 2 * x * z, y * y,
+            x * x, 3 * z * z,
+        ],
+        dim=-1,
+    )
+
+
+def apply_poly(coeffs, x, y, z):
+    """Evaluate a 20-term polynomial: coeffs (..., 20) at points (...,)."""
+    return torch.sum(poly20_basis(x, y, z) * coeffs, dim=-1)
+
+
+def apply_rfm(num, den, x, y, z):
+    return apply_poly(num, x, y, z) / apply_poly(den, x, y, z)
+
+
+# ----------------------------------------------------------------------
+# projection / localization
+# ----------------------------------------------------------------------
+
+
+def rpc_projection(rpc, lon, lat, alt):
+    """Ground (lon, lat, alt) -> image (col, row). Batched."""
+    nlon = (lon - rpc.lon_offset) / rpc.lon_scale
+    nlat = (lat - rpc.lat_offset) / rpc.lat_scale
+    nalt = (alt - rpc.alt_offset) / rpc.alt_scale
+    col = apply_rfm(rpc.samp_num, rpc.samp_den, nlat, nlon, nalt)
+    row = apply_rfm(rpc.line_num, rpc.line_den, nlat, nlon, nalt)
+    return col * rpc.col_scale + rpc.col_offset, row * rpc.row_scale + rpc.row_offset
+
+
+def _normalized_forward(rpc, nlon, nlat, nalt):
+    """Normalized (lon, lat, alt) -> normalized (col, row) and the 2x2
+    Jacobian d(col,row)/d(lon,lat), by the quotient rule."""
+    b = poly20_basis(nlat, nlon, nalt)
+    b_dlat = poly20_basis_dx(nlat, nlon, nalt)
+    b_dlon = poly20_basis_dy(nlat, nlon, nalt)
+
+    def rational(num, den):
+        p = torch.sum(b * num, dim=-1)
+        q = torch.sum(b * den, dim=-1)
+        p_dlat = torch.sum(b_dlat * num, dim=-1)
+        q_dlat = torch.sum(b_dlat * den, dim=-1)
+        p_dlon = torch.sum(b_dlon * num, dim=-1)
+        q_dlon = torch.sum(b_dlon * den, dim=-1)
+        v = p / q
+        return v, (p_dlon - v * q_dlon) / q, (p_dlat - v * q_dlat) / q
+
+    col, col_dlon, col_dlat = rational(rpc.samp_num, rpc.samp_den)
+    row, row_dlon, row_dlat = rational(rpc.line_num, rpc.line_den)
+    return col, row, col_dlon, col_dlat, row_dlon, row_dlat
+
+
+def rpc_localization(rpc, col, row, alt, n_iters=NEWTON_ITERS):
+    """Image (col, row) at altitude alt -> ground (lon, lat), by a fixed
+    number of Newton steps on the forward model with its exact 2x2
+    Jacobian, starting from the normalized origin."""
+    tcol = (col - rpc.col_offset) / rpc.col_scale
+    trow = (row - rpc.row_offset) / rpc.row_scale
+    nalt = (alt - rpc.alt_offset) / rpc.alt_scale
+    nlon = torch.zeros_like(tcol)
+    nlat = torch.zeros_like(trow)
+    for _ in range(n_iters):
+        c, r, c_dlon, c_dlat, r_dlon, r_dlat = _normalized_forward(rpc, nlon, nlat, nalt)
+        fx = c - tcol
+        fy = r - trow
+        det = c_dlon * r_dlat - c_dlat * r_dlon
+        # guard singular Jacobians on padded or degenerate inputs
+        safe = torch.where(det.abs() < 1e-30, torch.ones_like(det), det)
+        dlon = (r_dlat * fx - c_dlat * fy) / safe
+        dlat = (-r_dlon * fx + c_dlon * fy) / safe
+        nlon, nlat = nlon - dlon, nlat - dlat
+    return nlon * rpc.lon_scale + rpc.lon_offset, nlat * rpc.lat_scale + rpc.lat_offset

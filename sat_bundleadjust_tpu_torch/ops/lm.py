@@ -1,0 +1,598 @@
+"""Levenberg-Marquardt with Schur-complement elimination of tie points.
+
+Counterpart of `sat_bundleadjust_tpu/ops/lm.py`. One LM step builds the
+per-camera (U), per-point (V) and per-observation (W) normal-equation
+blocks, eliminates the 3x3 point blocks and solves the reduced camera
+system with one of two backends:
+  - "dense": assemble the (P*M, P*M) reduced camera matrix and factor it;
+  - "cg": matrix-free preconditioned CG on the Schur complement, whose
+    operator is the schur_wz kernel (ops/schur_matvec.py), with a
+    block-Jacobi preconditioner on the true Schur diagonal, an additive
+    coarse level and a warm start from the previous step.
+
+The LM and CG loops are Python loops; each loop test reads one scalar from
+the device (a host sync), counted in the `stats` dict the caller passes.
+
+Failed factorizations never raise: as in the JAX package, they produce
+non-finite values that the coarse-level guard drops or the step sanitizer
+turns into a rejected step.
+"""
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from sat_bundleadjust_tpu_torch.ops import smallmat as sm
+from sat_bundleadjust_tpu_torch.ops.robust import loss_cost, loss_scale
+from sat_bundleadjust_tpu_torch.ops.schur_matvec import schur_wz, schur_wz_plain
+
+MATVECS = ("auto", "plain", "aos")
+
+
+class LMProblem(NamedTuple):
+    """Static problem structure for one BA solve (tensors on the device).
+
+    Index tensors are int64 except the two kernel layouts, which are int32."""
+
+    pts_ind: torch.Tensor  # (K,)
+    cam_ind: torch.Tensor  # (K,)
+    pts2d: torch.Tensor  # (K, 2) f64
+    weights: torch.Tensor  # (K,) f64
+    cam_opt_mask: torch.Tensor  # (M,) f64, 1 where the camera is optimized
+    pts_opt_mask: torch.Tensor  # (N,) f64
+    pair_k1: torch.Tensor  # (Q,) intra-track observation pairs (dense path)
+    pair_k2: torch.Tensor  # (Q,)
+    # padded (segment, slot) -> observation tables, sentinel K: segment sums
+    # as gather + dense reduce (deterministic, no atomics); None -> index_add_
+    pt_gather: torch.Tensor = None  # (N, Tp)
+    cam_gather: torch.Tensor = None  # (M, Tc)
+    # (N, M) observation lookup (sentinel K) for the one-matmul dense path
+    obs_at: torch.Tensor = None
+    # dual layouts of the CG operator: camera of each track-major slot
+    # (sentinel M) and track of each camera-major slot (sentinel N)
+    cam_ind_pt: torch.Tensor = None  # (N, Tp) int32
+    pts_ind_cam: torch.Tensor = None  # (M, Tc) int32
+
+
+class LMConfig(NamedTuple):
+    loss: str = "linear"
+    f_scale: float = 1.0
+    max_iter: int = 100
+    ftol: float = 1e-4
+    xtol: float = 1e-10
+    lambda0: float = 1e-3
+    lambda_up: float = 5.0
+    lambda_down: float = 3.0
+    schur_mode: str = "dense"  # "dense" | "cg"
+    # CG budget per LM step; 0 = clip(n_cam // 2, 15, 60)
+    cg_iters: int = 0
+    # forcing term: CG stops at ||r|| <= cg_rtol * ||b||
+    cg_rtol: float = 1e-1
+    # additive coarse correction on the "same correction for every camera
+    # of a cluster" subspace, whose modes per-camera Jacobi cannot damp
+    cg_coarse: bool = True
+    cg_coarse_k: int = 1  # number of contiguous camera clusters
+    # CG operator: "auto" = the schur_wz kernel (its plain version on CPU
+    # tensors); "plain" = schur_wz_plain; "aos" = dense f32 reductions
+    matvec: str = "auto"
+
+
+def new_stats():
+    """Counters a solve accumulates: host syncs, CG iterations, operator
+    applications (matvecs)."""
+    return {"host_syncs": 0, "cg_iterations": 0, "matvecs": 0}
+
+
+# ----------------------------------------------------------------------
+# host-side index tables (numpy; identical to the JAX package's)
+# ----------------------------------------------------------------------
+
+
+def build_intra_track_pairs(pts_ind, n_pts):
+    """All ordered observation pairs (k1, k2) of the same track, track by
+    track in ascending order, row-major within a track."""
+    pts_ind = np.asarray(pts_ind)
+    order = np.argsort(pts_ind, kind="stable")
+    counts = np.bincount(pts_ind, minlength=n_pts).astype(np.int64)
+    if order.size == 0:
+        return np.zeros(0, np.int32), np.zeros(0, np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    sp = pts_ind[order]
+    reps = counts[sp]  # each sorted observation pairs with its whole track
+    k1 = np.repeat(order, reps)
+    base = np.repeat(starts[sp], reps)
+    within = np.arange(k1.size) - np.repeat(np.cumsum(reps) - reps, reps)
+    k2 = order[base + within]
+    return k1.astype(np.int32), k2.astype(np.int32)
+
+
+def build_gather_segments(ind, n_segments):
+    """(n_segments, T) padded table of the observations of each segment,
+    T = largest segment, pad value len(ind)."""
+    ind = np.asarray(ind)
+    K = len(ind)
+    counts = np.bincount(ind, minlength=n_segments)
+    T = max(int(counts.max()) if K else 1, 1)
+    order = np.argsort(ind, kind="stable")
+    starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+    table = np.full((n_segments, T), K, dtype=np.int32)
+    col = np.arange(K) - starts[ind[order]]
+    table[ind[order], col] = order
+    return table
+
+
+def gather_table_values(table, values, n_valid, fill):
+    """values[slot] for each real slot (< n_valid) of a gather table,
+    `fill` for padding slots."""
+    table = np.asarray(table)
+    values = np.asarray(values, np.int32)
+    if len(values) == 0 or n_valid <= 0:
+        return np.full(table.shape, fill, np.int32)
+    return np.where(
+        table < n_valid, values[np.minimum(table, n_valid - 1)], np.int32(fill)
+    ).astype(np.int32)
+
+
+def build_obs_at(pts_ind, cam_ind, n_pts, n_cam):
+    """(N, M) observation index per (track, camera), sentinel K; None when a
+    track observes a camera more than once."""
+    pts_ind = np.asarray(pts_ind)
+    cam_ind = np.asarray(cam_ind)
+    K = len(pts_ind)
+    flat = pts_ind.astype(np.int64) * n_cam + cam_ind
+    if len(np.unique(flat)) != K:
+        return None
+    table = np.full((n_pts, n_cam), K, dtype=np.int32)
+    table[pts_ind, cam_ind] = np.arange(K, dtype=np.int32)
+    return table
+
+
+# ----------------------------------------------------------------------
+# normal equations
+# ----------------------------------------------------------------------
+
+
+def _seg_sum(x, ind, n_segments, table):
+    """segment_sum(x, ind): gather + dense reduce over the padded table when
+    there is one (deterministic), else index_add_."""
+    if table is None:
+        out = torch.zeros((n_segments,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+        return out.index_add_(0, ind, x)
+    pad = torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
+    return torch.cat([x, pad], dim=0)[table].sum(dim=1)
+
+
+def _seg_sum_pt(x, prob, n_pts):
+    return _seg_sum(x, prob.pts_ind, n_pts, prob.pt_gather)
+
+
+def _seg_sum_cam(x, prob, n_cam):
+    return _seg_sum(x, prob.cam_ind, n_cam, prob.cam_gather)
+
+
+def _inv3x3(V):
+    """Batched closed-form 3x3 inverse (V SPD after damping)."""
+    a, b, c = V[..., 0, 0], V[..., 0, 1], V[..., 0, 2]
+    d, e, f = V[..., 1, 0], V[..., 1, 1], V[..., 1, 2]
+    g, h, i = V[..., 2, 0], V[..., 2, 1], V[..., 2, 2]
+    A = e * i - f * h
+    B = c * h - b * i
+    C = b * f - c * e
+    D = f * g - d * i
+    E = a * i - c * g
+    F = c * d - a * f
+    G = d * h - e * g
+    H = b * g - a * h
+    I = a * e - b * d
+    det = a * A + b * D + c * G
+    det = torch.where(det.abs() < 1e-30, torch.ones_like(det), det)
+    inv = torch.stack(
+        [
+            torch.stack([A, B, C], dim=-1),
+            torch.stack([D, E, F], dim=-1),
+            torch.stack([G, H, I], dim=-1),
+        ],
+        dim=-2,
+    )
+    return inv / det[..., None, None]
+
+
+def _normal_blocks(r, J_cam, J_pt, prob, n_cam, n_pts, cfg, loss=None, f_scale=None):
+    """Gradient and normal-equation blocks in the Jacobian's dtype.
+
+    r: (K, 2) f64; J_cam: (K, 2, P); J_pt: (K, 2, 3). Returns the scaled
+    residual and g_cam (M, P), g_pt (N, 3), U (M, P, P), V (N, 3, 3),
+    W (K, P, 3)."""
+    dt = J_cam.dtype
+    loss = cfg.loss if loss is None else loss
+    f_scale = cfg.f_scale if f_scale is None else f_scale
+    s = loss_scale(loss, r, f_scale).to(dt)  # IRLS scaling, from the f64 residual
+    r = r.to(dt) * s
+    J_cam = J_cam * s[..., None]
+    J_pt = J_pt * s[..., None]
+
+    J_cam = J_cam * prob.cam_opt_mask.to(dt)[prob.cam_ind][:, None, None]
+    J_pt = J_pt * prob.pts_opt_mask.to(dt)[prob.pts_ind][:, None, None]
+
+    g_cam = _seg_sum_cam(sm.mtv(J_cam, r), prob, n_cam)
+    g_pt = _seg_sum_pt(sm.mtv(J_pt, r), prob, n_pts)
+    U = _seg_sum_cam(sm.mtm(J_cam, J_cam), prob, n_cam)
+    V = _seg_sum_pt(sm.mtm(J_pt, J_pt), prob, n_pts)
+    W = sm.mtm(J_cam, J_pt)  # (K, P, 3)
+    return r, g_cam, g_pt, U, V, W
+
+
+def _damp(M_blocks, lam, floor=1e-12):
+    """Marquardt multiplicative damping of block diagonals."""
+    dt = M_blocks.dtype
+    lam = torch.as_tensor(lam, device=M_blocks.device).to(dt)
+    diag = torch.diagonal(M_blocks, dim1=-2, dim2=-1)
+    add = lam * torch.clamp(diag, min=floor) + floor
+    eye = torch.eye(M_blocks.shape[-1], dtype=dt, device=M_blocks.device)
+    return M_blocks + eye * add[..., None, :]
+
+
+def _schur_rhs(g_cam, g_pt, W, Vinv, prob, n_cam):
+    """b = -g_cam + sum_k W_k V^-1 g_pt (reduced right-hand side)."""
+    Yg = sm.mv(W, sm.mv(Vinv, g_pt)[prob.pts_ind])
+    return -g_cam + _seg_sum_cam(Yg, prob, n_cam)
+
+
+def _solve_masked_dense(S, b, cam_opt_mask, n_cam, P):
+    """Cholesky solve of the reduced camera system with identity rows for
+    frozen cameras. A failed factorization yields NaN (no exception)."""
+    dt = S.dtype
+    m = cam_opt_mask.to(dt).repeat_interleave(P)
+    S = S * m[:, None] * m[None, :] + torch.diag(1.0 - m)
+    b = b.reshape(-1) * m
+    L, info = torch.linalg.cholesky_ex(S)
+    dc = torch.cholesky_solve(b[:, None], L)[:, 0]
+    dc = torch.where(info == 0, dc, torch.full_like(dc, math.nan))
+    return dc.reshape(n_cam, P)
+
+
+def _dense_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask):
+    """Dense reduced camera system assembled over intra-track pairs."""
+    P = U_d.shape[-1]
+    Y = sm.mm(W, Vinv[prob.pts_ind])  # (K, P, 3)
+    contrib = sm.mbt(Y[prob.pair_k1], W[prob.pair_k2])  # (Q, P, P)
+    pair_seg = prob.cam_ind[prob.pair_k1] * n_cam + prob.cam_ind[prob.pair_k2]
+    S_off = torch.zeros((n_cam * n_cam, P, P), dtype=U_d.dtype, device=U_d.device)
+    S_off.index_add_(0, pair_seg, contrib)
+    S = -S_off.reshape(n_cam, n_cam, P, P)
+    idx = torch.arange(n_cam, device=U_d.device)
+    S[idx, idx] += U_d
+    S = S.permute(0, 2, 1, 3).reshape(n_cam * P, n_cam * P)
+    return _solve_masked_dense(S, b, cam_opt_mask, n_cam, P)
+
+
+def _dense_mxu_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask):
+    """Dense reduced camera system as one (MP, 3N) x (3N, MP) product over
+    the (track, camera) grid of obs_at."""
+    P = U_d.shape[-1]
+    dt = U_d.dtype
+    Y = sm.mm(W, Vinv[prob.pts_ind])  # (K, P, 3)
+    pad = torch.zeros((1, P, 3), dtype=dt, device=U_d.device)
+    A = torch.cat([Y, pad])[prob.obs_at]  # (N, M, P, 3)
+    B = torch.cat([W, pad])[prob.obs_at]
+    n_pts = prob.obs_at.shape[0]
+    Am = A.permute(1, 2, 0, 3).reshape(n_cam * P, n_pts * 3)
+    Bm = B.permute(1, 2, 0, 3).reshape(n_cam * P, n_pts * 3)
+    S = -torch.matmul(Am, Bm.T).reshape(n_cam, P, n_cam, P)
+    idx = torch.arange(n_cam, device=U_d.device)
+    S[idx, :, idx, :] += U_d
+    return _solve_masked_dense(S.reshape(n_cam * P, n_cam * P), b, cam_opt_mask, n_cam, P)
+
+
+# ----------------------------------------------------------------------
+# matrix-free CG
+# ----------------------------------------------------------------------
+
+
+def fold_layouts(W, Vinv, prob):
+    """What = W chol(V^-1) in the track-major (N, Tp, P, 3) and camera-major
+    (M, Tc, P, 3) layouts, zero in empty slots. Full f32 products."""
+    P = W.shape[1]
+    Lc = sm.chol3x3(0.5 * (Vinv + Vinv.transpose(-1, -2)))
+    W_pad = torch.cat([W, torch.zeros((1, P, 3), dtype=W.dtype, device=W.device)])
+    W_pt = sm.mm(W_pad[prob.pt_gather], Lc[:, None])
+    Lc_pad = torch.cat([Lc, torch.zeros((1, 3, 3), dtype=Lc.dtype, device=Lc.device)])
+    W_cm = sm.mm(W_pad[prob.cam_gather], Lc_pad[prob.pts_ind_cam.long()])
+    return W_pt, W_cm
+
+
+def schur_wz_aos(x, W_pt, cam_ind_pt, W_cm, pts_ind_cam):
+    """The operator of ops/schur_matvec.py as two dense f32 reductions over
+    the padded layouts (the JAX package's "aos" matvec): no wide sum on
+    the camera side."""
+    M, N = x.shape[0], W_pt.shape[0]
+    ci = cam_ind_pt.long()
+    xg = x[ci.clamp(max=M - 1)] * (ci < M).to(x.dtype)[..., None]
+    what = torch.sum(sm.mtv(W_pt, xg), dim=1)
+    return torch.sum(sm.mv(W_cm, what[pts_ind_cam.long().clamp(max=N - 1)]), dim=1)
+
+
+def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
+                    cg_rtol=1e-2, x0=None, coarse=True, coarse_k=1,
+                    matvec_impl="auto", stats=None):
+    """Matrix-free preconditioned CG on the Schur complement, in float32.
+
+    matvec(x) = U x - W V^-1 W^T x. LM only needs a descent direction, so
+    the budget is truncated (cg_iters) with forcing term cg_rtol."""
+    if matvec_impl not in MATVECS:
+        raise ValueError("matvec must be one of {}, got {!r}".format(MATVECS, matvec_impl))
+    stats = new_stats() if stats is None else stats
+    out_dtype = b.dtype
+    f32 = torch.float32
+    scale = torch.clamp(b.abs().max(), min=1e-30)
+    U_d = (U_d / scale).to(f32)
+    W = (W / torch.sqrt(scale)).to(f32)
+    Vinv = Vinv.to(f32)
+    b = (b / scale).to(f32)
+    P = U_d.shape[-1]
+    n_pts = Vinv.shape[0]
+    dev = U_d.device
+    m = cam_opt_mask.to(f32)[:, None]
+
+    dual_layout = prob.cam_ind_pt is not None and prob.pts_ind_cam is not None
+    if dual_layout:
+        W_pt, W_cm = fold_layouts(W, Vinv, prob)
+        op = {"aos": schur_wz_aos, "plain": schur_wz_plain}.get(matvec_impl, schur_wz)
+
+        def wz_of(x):
+            return op(x.contiguous(), W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
+    else:
+        pts_ind, cam_ind = prob.pts_ind, prob.cam_ind
+
+        def wz_of(x):
+            wtx = _seg_sum_pt(sm.mtv(W, x[cam_ind]), prob, n_pts)
+            return _seg_sum_cam(sm.mv(W, sm.mv(Vinv, wtx)[pts_ind]), prob, n_cam)
+
+    def matvec(x):
+        stats["matvecs"] += 1
+        out = sm.mv(U_d, x) - wz_of(x)
+        return out * m + x * (1.0 - m)
+
+    # block-Jacobi preconditioner on the true Schur diagonal
+    # S_cc = U_cc - sum_{k in obs(c)} Y_k W_k^T
+    if dual_layout:
+        S_diag = U_d - torch.sum(sm.mbt(W_cm, W_cm), dim=1)
+    else:
+        Y = sm.mm(W, Vinv[prob.pts_ind])
+        S_diag = U_d - _seg_sum_cam(sm.mbt(Y, W), prob, n_cam)
+    eye_p = torch.eye(P, dtype=f32, device=dev)
+    prec, info = torch.linalg.inv_ex(S_diag + eye_p * 1e-12)
+    prec = torch.where((info == 0)[:, None, None], prec, torch.full_like(prec, math.nan))
+
+    if coarse:
+        G = max(1, int(coarse_k))
+        E, Zg = coarse_schur_E(U_d, W, Vinv, prob, m, n_pts,
+                               W_pt=W_pt if dual_layout else None,
+                               n_clusters=G)
+        Einv = coarse_inverse(E.reshape(G * P, G * P))
+
+    def apply_prec(v):
+        out = sm.mv(prec, v)
+        if coarse:
+            vc = (Zg.T @ v).reshape(-1)
+            out = out + Zg @ (Einv @ vc).reshape(G, P)
+        return out * m + v * (1.0 - m)
+
+    b = b * m
+    rr0 = torch.sum(b * b)
+    if x0 is None:
+        x = torch.zeros_like(b)
+        r = b
+    else:
+        # warm start from the previous LM step, unless it is a worse start
+        # than zero
+        x0 = x0.to(f32) * m
+        r_w = b - matvec(x0)
+        use_warm = torch.sum(r_w * r_w) < rr0
+        x = torch.where(use_warm, x0, torch.zeros_like(b))
+        r = torch.where(use_warm, r_w, b)
+    z = apply_prec(r)
+    p = z
+    rz = torch.sum(r * z)
+    tol = (cg_rtol * cg_rtol) * rr0
+    one = torch.ones((), dtype=f32, device=dev)
+
+    it = 0
+    while it < cg_iters:
+        stats["host_syncs"] += 1
+        if not bool(torch.sum(r * r) > tol):
+            break
+        Ap = matvec(p)
+        denom = torch.sum(p * Ap)
+        alpha = rz / torch.where(denom.abs() < 1e-30, one, denom)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = apply_prec(r)
+        rz_new = torch.sum(r * z)
+        beta = rz_new / torch.where(rz.abs() < 1e-30, one, rz)
+        p = z + beta * p
+        rz = rz_new
+        it += 1
+    stats["cg_iterations"] += it
+    return x.to(out_dtype)
+
+
+def coarse_inverse(E):
+    """f32 inverse of the coarse operator E (GP, GP) through a
+    ridge-regularized Cholesky, or zeros when E is not SPD (f32 cancellation
+    at late-LM damping): an indefinite additive preconditioner term would
+    make CG diverge, so the coarse level is dropped for that step. Never
+    raises and never synchronizes (cholesky_ex, not cholesky)."""
+    f32 = torch.float32
+    GP = E.shape[0]
+    E = E.to(f32)
+    ridge = torch.trace(E) / GP * 1e-6 + 1e-30
+    eye = torch.eye(GP, dtype=f32, device=E.device)
+    L, info = torch.linalg.cholesky_ex(E + ridge * eye)
+    Einv = torch.cholesky_solve(eye, L)
+    ok = (info == 0) & torch.all(torch.isfinite(Einv))
+    return torch.where(ok, Einv, torch.zeros_like(Einv))
+
+
+def coarse_schur_E(U_d, W, Vinv, prob, m, n_pts, W_pt=None, n_clusters=1):
+    """Galerkin coarse operator E = Z^T S Z of the two-level preconditioner,
+    Z = Zg (x) I_P with Zg the (M, G) indicator of G contiguous camera
+    clusters masked by m. Returns (E, Zg); G = 1 gives a (P, P) E.
+
+    W_pt: the folded track-major layout (E_bot = Whsum Whsum^T); otherwise
+    the per-observation W with a segment sum over tracks."""
+    P = U_d.shape[-1]
+    M = U_d.shape[0]
+    G = max(1, int(n_clusters))
+    dev = U_d.device
+    m = m.reshape(-1, 1)
+    groups = torch.clamp(torch.arange(M, device=dev) * G // M, max=G - 1)
+    Zg = (groups[:, None] == torch.arange(G, device=dev)[None, :]).to(U_d.dtype) * m
+    if W_pt is not None:
+        Zg_pad = torch.cat([Zg, torch.zeros((1, G), dtype=Zg.dtype, device=dev)])
+        slot_g = Zg_pad[prob.cam_ind_pt.long()]  # (N, Tp, G)
+        Wsum = torch.einsum("ntpj,ntg->ngpj", W_pt, slot_g)
+        E_bot = torch.einsum("ngpi,nhqi->gphq", Wsum, Wsum)
+    else:
+        zk = Zg[prob.cam_ind]  # (K, G)
+        Wz = W[:, None] * zk[..., None, None]
+        Wsum = torch.zeros((n_pts,) + tuple(Wz.shape[1:]), dtype=W.dtype, device=dev)
+        Wsum.index_add_(0, prob.pts_ind, Wz)
+        E_bot = torch.einsum("ngpi,nij,nhqj->gphq", Wsum, Vinv, Wsum)
+    E_top = torch.einsum("mg,mpq,mh->gphq", Zg, U_d, Zg)
+    E = E_top - E_bot
+    if G == 1:
+        E = E.reshape(P, P)
+    return E, Zg
+
+
+# ----------------------------------------------------------------------
+# LM step and driver
+# ----------------------------------------------------------------------
+
+
+def default_cg_iters(n_cam):
+    return max(15, min(60, n_cam // 2))
+
+
+def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=None,
+            x0_cam=None, stats=None):
+    """One damped Schur-complement solve. Returns (dcam (M, P), dpt (N, 3)).
+
+    x0_cam: CG warm start (the previous step's dcam); ignored by "dense"."""
+    r, g_cam, g_pt, U, V, W = _normal_blocks(
+        r, J_cam, J_pt, prob, n_cam, n_pts, cfg, loss=loss, f_scale=f_scale
+    )
+    dt = U.dtype
+    U_d = _damp(U, lam)
+    V_d = _damp(V, lam)
+    # frozen points: V = I so that dp = -V^-1 g_pt = 0 (g_pt is masked)
+    eye = torch.eye(3, dtype=dt, device=U.device)
+    pmask = prob.pts_opt_mask.to(dt)
+    V_d = V_d * pmask[:, None, None] + eye * (1.0 - pmask)[:, None, None]
+    Vinv = _inv3x3(V_d)
+
+    b = _schur_rhs(g_cam, g_pt, W, Vinv, prob, n_cam)
+    cmask = prob.cam_opt_mask.to(dt)
+    if cfg.schur_mode == "dense":
+        solve = _dense_mxu_schur_solve if prob.obs_at is not None else _dense_schur_solve
+        dcam = solve(U_d, W, Vinv, b, prob, n_cam, cmask)
+    else:
+        dcam = _cg_schur_solve(
+            U_d, W, Vinv, b, prob, n_cam, cmask,
+            cfg.cg_iters or default_cg_iters(n_cam),
+            cg_rtol=cfg.cg_rtol, x0=x0_cam, coarse=cfg.cg_coarse,
+            coarse_k=cfg.cg_coarse_k, matvec_impl=cfg.matvec, stats=stats,
+        )
+
+    # back-substitute tie points: dp = -V^-1 (g_pt + W^T dcam)
+    wtdc = _seg_sum_pt(sm.mtv(W, dcam[prob.cam_ind]), prob, n_pts)
+    dpt = -sm.mv(Vinv, g_pt + wtdc) * pmask[:, None]
+    dcam = dcam * cmask[:, None]
+    # a non-finite step (failed factorization, indefinite CG) becomes a zero
+    # step, which the driver treats as a rejected iteration
+    finite = torch.isfinite(dcam.sum()) & torch.isfinite(dpt.sum())
+    dcam = torch.where(finite, dcam, torch.zeros_like(dcam))
+    dpt = torch.where(finite, dpt, torch.zeros_like(dpt))
+    return dcam, dpt
+
+
+def build_solve(residual_fn, jac_fn, n_cam, n_pts, prob, cfg):
+    """The LM driver for one problem: run(cam, pts, max_iter, loss, f_scale,
+    stats) -> (cam, pts, info). One host sync per LM iteration (plus the
+    CG's)."""
+    if not cfg.cg_iters:
+        cfg = cfg._replace(cg_iters=default_cg_iters(n_cam))
+    n_obs = int(prob.pts2d.shape[0])
+
+    def run(cam, pts, max_iter, loss, f_scale, stats=None):
+        stats = new_stats() if stats is None else stats
+        r0 = residual_fn(cam, pts)
+        cost0 = loss_cost(loss, r0, f_scale)
+        # "exactly solved" floor: 1e-14 px^2 per observation
+        cost_floor = torch.clamp(1e-15 * torch.clamp(cost0, min=1.0), min=1e-14 * n_obs)
+        lam = torch.tensor(cfg.lambda0, dtype=cam.dtype, device=cam.device)
+        cost = cost0
+        done = torch.zeros((), dtype=torch.bool, device=cam.device)
+        dcam_prev = torch.zeros_like(cam)
+        n_iter = 0
+        while n_iter < max_iter:
+            if n_iter > 0:
+                stats["host_syncs"] += 1
+                if bool(done):
+                    break
+            r, J_cam, J_pt = jac_fn(cam, pts)
+            dcam, dpt = lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg,
+                                loss=loss, f_scale=f_scale, x0_cam=dcam_prev,
+                                stats=stats)
+            cam_new = cam + dcam
+            pts_new = pts + dpt
+            new_cost = loss_cost(loss, residual_fn(cam_new, pts_new), f_scale)
+            improved = new_cost < cost
+            rel_drop = (cost - new_cost) / torch.clamp(cost, min=1e-30)
+            # scipy-TRF-style step-size criterion (xtol)
+            step_norm = torch.sqrt(torch.sum(dcam * dcam) + torch.sum(dpt * dpt))
+            x_norm = torch.sqrt(torch.sum(cam * cam) + torch.sum(pts * pts))
+            small_step = step_norm < cfg.xtol * (x_norm + cfg.xtol)
+            cam = torch.where(improved, cam_new, cam)
+            pts = torch.where(improved, pts_new, pts)
+            lam = torch.where(improved, lam / cfg.lambda_down, lam * cfg.lambda_up)
+            cost = torch.where(improved, new_cost, cost)
+            done = (
+                done
+                | (improved & (rel_drop < cfg.ftol))
+                | (improved & small_step)
+                | (lam > 1e12)
+                | (cost <= cost_floor)
+            )
+            # the step warm-starts the next CG, even when rejected
+            dcam_prev = dcam.to(cam.dtype)
+            n_iter += 1
+        r_fin = residual_fn(cam, pts)
+        w = prob.weights[:, None]
+        errs = torch.stack([torch.linalg.norm(r0 / w, dim=1),
+                            torch.linalg.norm(r_fin / w, dim=1)]).to(torch.float32)
+        scalars = torch.stack([lam, cost, cost0]).cpu().numpy()
+        errs = errs.cpu().numpy()
+        info = {
+            "cost0": float(scalars[2]),
+            "cost": float(scalars[1]),
+            "err0": errs[0],
+            "err_fin": errs[1],
+            "iterations": n_iter,
+            "lambda": float(scalars[0]),
+        }
+        info.update(stats)
+        return cam, pts, info
+
+    return run
+
+
+def solve(residual_fn, jac_fn, cam0, pts0, prob, cfg, stats=None):
+    """Full LM solve from (cam0, pts0). Returns (cam, pts, info); info holds
+    cost0/cost, per-observation errors err0/err_fin, iterations, lambda and
+    the counters of new_stats()."""
+    run = build_solve(residual_fn, jac_fn, cam0.shape[0], pts0.shape[0], prob, cfg)
+    return run(cam0, pts0, cfg.max_iter, cfg.loss, cfg.f_scale, stats=stats)

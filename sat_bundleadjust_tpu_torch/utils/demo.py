@@ -1,0 +1,135 @@
+"""Self-contained synthetic scenes (no data files needed).
+
+Counterpart of `sat_bundleadjust_tpu/utils/demo.py:19-151`: plausible RPC
+cameras built programmatically and ground-truth-controlled BA problems of
+any size. Random numbers come from numpy with the same calls in the same
+order, so a seed gives the JAX package's scene.
+"""
+
+import numpy as np
+import torch
+
+from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.models import ellipsoid
+from sat_bundleadjust_tpu_torch.models.rpc import RPCModel, stack_rpcs
+
+
+def make_synthetic_rpc(lon0=-72.71, lat0=11.02, view_dx=0.0, view_dy=0.0,
+                       img_halfsize=(1600.0, 675.0)):
+    """A well-conditioned RPC (numpy fields): linear in normalized ground
+    coordinates, with a per-camera altitude parallax (view_dx/view_dy px per
+    normalized altitude). Valid domain: |L|, |P|, |H| <= 1."""
+    colh, rowh = img_halfsize
+    zeros = np.zeros(20)
+
+    def poly(lin_l, lin_p, lin_h):
+        p = zeros.copy()
+        p[1], p[2], p[3] = lin_l, lin_p, lin_h
+        return p
+
+    den = zeros.copy()
+    den[0] = 1.0
+    return RPCModel(
+        line_num=poly(0.08, 1.0, view_dy / rowh), line_den=den.copy(),
+        samp_num=poly(1.0, -0.06, view_dx / colh), samp_den=den.copy(),
+        row_offset=rowh, col_offset=colh,
+        lat_offset=lat0, lon_offset=lon0, alt_offset=50.0,
+        row_scale=rowh, col_scale=colh,
+        lat_scale=0.02, lon_scale=0.03, alt_scale=600.0,
+    )
+
+
+def make_scene_arrays(n_cam=8, n_pts=2000, obs_per_pt=None, rot_scale=2e-5,
+                      noise_px=0.1, seed=0, device=None):
+    """A flat synthetic BA problem (observation-table form), projected on
+    `device`. Returns a dict of numpy arrays (cam_params_true (M, 9),
+    cam_params0 (M, 9) zero-correction start, camera_centers, pts3d,
+    pts_ind/cam_ind/pts2d/weights), the list of RPCs (rpc_list) and the
+    batched RPCs on the device (rpcs)."""
+    from sat_bundleadjust_tpu_torch.ops import project as project_ops
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    rpcs = [
+        make_synthetic_rpc(view_dx=300.0 * np.cos(2 * np.pi * i / n_cam),
+                           view_dy=300.0 * np.sin(2 * np.pi * i / n_cam))
+        for i in range(n_cam)
+    ]
+    batched = stack_rpcs(rpcs, dev)
+
+    lon0, lat0 = -72.71, 11.02
+    lons = lon0 + 0.02 * rng.uniform(-1, 1, n_pts)
+    lats = lat0 + 0.015 * rng.uniform(-1, 1, n_pts)
+    alts = 50.0 + 100.0 * rng.uniform(-1, 1, n_pts)
+
+    def t64(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    pts3d = ellipsoid.latlon_to_ecef_arr(t64(lats), t64(lons), t64(alts)).cpu().numpy()
+
+    ground = pts3d.mean(axis=0)
+    up = ground / np.linalg.norm(ground)
+    centers = np.stack(
+        [ground + up * 500000.0 + np.array([1.0, 0, 0]) * (i - n_cam / 2) * 60000.0
+         for i in range(n_cam)]
+    )
+
+    cam_params_true = np.zeros((n_cam, 9))
+    cam_params_true[:, :3] = rot_scale * rng.uniform(-1, 1, (n_cam, 3))
+    cam_params_true[:, 6:9] = centers
+
+    if obs_per_pt is None:
+        obs_per_pt = min(n_cam, 4)
+    # each point observed by obs_per_pt consecutive cameras (ring)
+    start = rng.randint(0, n_cam, n_pts)
+    cam_ind = ((start[:, None] + np.arange(obs_per_pt)[None, :]) % n_cam).reshape(-1)
+    pts_ind = np.repeat(np.arange(n_pts), obs_per_pt)
+
+    obs = project_ops.project_rpc(
+        t64(pts3d), batched, t64(cam_params_true),
+        torch.as_tensor(pts_ind, dtype=torch.int64, device=dev),
+        torch.as_tensor(cam_ind, dtype=torch.int64, device=dev),
+    ).cpu().numpy()
+    obs += noise_px * rng.randn(*obs.shape)
+
+    cam_params0 = cam_params_true.copy()
+    cam_params0[:, :6] = 0.0
+
+    return {
+        "rpcs": batched,
+        "rpc_list": rpcs,
+        "cam_params_true": cam_params_true,
+        "cam_params0": cam_params0,
+        "camera_centers": centers,
+        "pts3d": pts3d,
+        "pts_ind": pts_ind.astype(np.int32),
+        "cam_ind": cam_ind.astype(np.int32),
+        "pts2d": obs,
+        "weights": np.ones(len(pts_ind)),
+    }
+
+
+def scene_to_baparams(scene, noise_pts=1.0, verbose=False, dense_c=False):
+    """Wrap make_scene_arrays output into a BAParams problem with perturbed
+    starting points: through from_obs_table, or through the C-matrix
+    constructor with dense_c=True (both give identical problems)."""
+    from sat_bundleadjust_tpu_torch.ba.params import BAParams
+
+    n_cam = scene["cam_params0"].shape[0]
+    n_pts = scene["pts3d"].shape[0]
+    pairs = [(i, j) for i in range(n_cam) for j in range(i + 1, n_cam)]
+    rng = np.random.RandomState(1)
+    pts0 = scene["pts3d"] + noise_pts * rng.randn(n_pts, 3)
+    if dense_c:
+        C = np.full((2 * n_cam, n_pts), np.nan)
+        C[2 * scene["cam_ind"], scene["pts_ind"]] = scene["pts2d"][:, 0]
+        C[2 * scene["cam_ind"] + 1, scene["pts_ind"]] = scene["pts2d"][:, 1]
+        return BAParams(
+            C, pts0, scene["rpc_list"], "rpc", pairs,
+            [c for c in scene["camera_centers"]], {"verbose": verbose},
+        )
+    return BAParams.from_obs_table(
+        scene["pts_ind"], scene["cam_ind"], scene["pts2d"], pts0,
+        scene["rpc_list"], "rpc", [c for c in scene["camera_centers"]],
+        pairs, {"verbose": verbose},
+    )

@@ -1,0 +1,157 @@
+"""Parity of the port's problem set-up with the JAX package: the BAParams
+tables of both constructors, the host-side index tables of ops/lm.py and
+the LMProblem that ba/solver.build_problem assembles. All of these are
+integer or copied float64 tables, so they must be identical."""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import both_problems, jax_scene, rpc_arrays
+
+from sat_bundleadjust_tpu.ba import solver as jsolver
+from sat_bundleadjust_tpu.ops import lm as jlm
+
+from sat_bundleadjust_tpu_torch.ba import params as tparams
+from sat_bundleadjust_tpu_torch.ba import solver as tsolver
+from sat_bundleadjust_tpu_torch.ops import lm as tlm
+
+TABLES = ("pts_ind", "cam_ind", "pts2d", "pts2d_w", "pts3d", "cam_params", "cam_opt_mask",
+          "pts_opt_mask", "pts_prev_indices", "cam_prev_indices")
+SCALARS = ("n_cam", "n_pts", "n_obs", "n_params", "n_cam_fix", "n_pts_fix", "n_cam_opt",
+           "n_pts_opt", "pairs_to_triangulate", "cam_params_to_optimize")
+
+
+def _assert_same_problem(jp, tp):
+    for name in TABLES:
+        a, b = getattr(tp, name), getattr(jp, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    for name in SCALARS:
+        assert getattr(tp, name) == getattr(jp, name), name
+    if jp.C is None:
+        assert tp.C is None
+    else:
+        np.testing.assert_array_equal(tp.C, jp.C)
+    for a, b in zip(tp.rpcs, rpc_arrays(jp.rpcs)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(tp.opt_block(), jp.opt_block())
+
+
+@pytest.mark.parametrize("dense_c", [False, True])
+@pytest.mark.parametrize("d", [{}, {"n_cam_fix": 2, "n_pts_fix": 7, "ref_cam_weight": 3.0,
+                                   "correction_params": ["R", "T"]}])
+def test_baparams_match_jax(dense_c, d):
+    scene = jax_scene(n_cam=8, n_pts=400, seed=1)
+    jp, tp = both_problems(scene, dense_c=dense_c, d=d)
+    _assert_same_problem(jp, tp)
+
+
+def test_baparams_reduce_matches_jax():
+    """The C-matrix constructor's reduce pass: a camera with no observation
+    and tracks seen only by frozen cameras are dropped, as in JAX."""
+    from sat_bundleadjust_tpu.ba.params import BAParams as JBAParams
+
+    from sat_bundleadjust_tpu_torch import convert
+
+    scene = jax_scene(n_cam=6, n_pts=300, seed=4)
+    n_cam, n_pts = 7, 300
+    C = np.full((2 * n_cam, n_pts), np.nan)
+    C[2 * scene["cam_ind"], scene["pts_ind"]] = scene["pts2d"][:, 0]
+    C[2 * scene["cam_ind"] + 1, scene["pts_ind"]] = scene["pts2d"][:, 1]
+    C[:, :20] = np.nan
+    C[0:2, :20] = 100.0  # tracks 0..19 seen by camera 0 only, which is frozen
+    # camera 6 observes nothing
+    cams = list(scene["rpc_list"]) + [scene["rpc_list"][0]]
+    centers = [c for c in scene["camera_centers"]] + [scene["camera_centers"][0]]
+    pairs = [(i, j) for i in range(n_cam) for j in range(i + 1, n_cam)]
+    d = {"n_cam_fix": 1, "n_pts_fix": 30, "verbose": False}
+    jp = JBAParams(C, scene["pts3d"], cams, "rpc", pairs, centers, d)
+    tp = tparams.BAParams(C, scene["pts3d"], convert.rpc_list_from_arrays(rpc_arrays(cams)),
+                          "rpc", pairs, centers, d)
+    assert tp.n_cam == 6 and tp.n_pts == 280
+    _assert_same_problem(jp, tp)
+
+
+def test_reconstruct_vars_matches_jax():
+    scene = jax_scene(n_cam=6, n_pts=200, seed=5)
+    jp, tp = both_problems(scene, dense_c=True, d={"correction_params": ["R", "T"]})
+    rng = np.random.RandomState(0)
+    cam = jp.opt_block() + 1e-5 * rng.randn(*jp.opt_block().shape)
+    pts = jp.pts3d + rng.randn(*jp.pts3d.shape)
+    init = np.zeros((jp.n_pts + 3, 3))
+    pj, cj = jp.reconstruct_vars(cam, pts, init, list(range(jp.n_cam)))
+    pt, ct = tp.reconstruct_vars(torch.as_tensor(cam), torch.as_tensor(pts), init,
+                                 list(range(tp.n_cam)))
+    np.testing.assert_array_equal(pt, pj)
+    for a, b in zip(ct, cj):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(tp.estimated_params, jp.estimated_params):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_matrix_models_raise_not_implemented():
+    scene = jax_scene(n_cam=4, n_pts=20)
+    C = np.zeros((8, 20))
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tparams.BAParams(C, scene["pts3d"], [np.eye(3, 4)] * 4, "affine", [], [np.zeros(3)] * 4)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        tparams.BAParams.from_obs_table([0], [0], np.zeros((1, 2)), np.zeros((1, 3)),
+                                        [np.eye(3, 4)], "perspective", [np.zeros(3)])
+
+
+@pytest.mark.parametrize("seed,obs_per_pt", [(0, 4), (2, 3)])
+def test_index_tables_match_jax(seed, obs_per_pt):
+    scene = jax_scene(n_cam=9, n_pts=500, seed=seed, obs_per_pt=obs_per_pt)
+    jp, tp = both_problems(scene)
+    # drop a few observations so that tracks and cameras have ragged lengths
+    keep = np.ones(tp.n_obs, bool)
+    keep[np.random.RandomState(seed).choice(tp.n_obs, 150, replace=False)] = False
+    pts_ind, cam_ind = tp.pts_ind[keep], tp.cam_ind[keep]
+    N, M, K = tp.n_pts, tp.n_cam, int(keep.sum())
+    for a, b in zip(tlm.build_intra_track_pairs(pts_ind, N),
+                    jlm.build_intra_track_pairs(pts_ind, N)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    for ind, n in ((pts_ind, N), (cam_ind, M)):
+        ta = tlm.build_gather_segments(ind, n)
+        ja = jlm.build_gather_segments(ind, n)
+        np.testing.assert_array_equal(ta, ja)
+    pt_table = jlm.build_gather_segments(pts_ind, N)
+    cam_table = jlm.build_gather_segments(cam_ind, M)
+    np.testing.assert_array_equal(tlm.gather_table_values(pt_table, cam_ind, K, M),
+                                  jlm.gather_table_values(pt_table, cam_ind, K, M))
+    np.testing.assert_array_equal(tlm.gather_table_values(cam_table, pts_ind, K, N),
+                                  jlm.gather_table_values(cam_table, pts_ind, K, N))
+    np.testing.assert_array_equal(tlm.gather_table_values(cam_table, [], 0, N),
+                                  jlm.gather_table_values(cam_table, [], 0, N))
+    np.testing.assert_array_equal(tlm.build_obs_at(pts_ind, cam_ind, N, M),
+                                  jlm.build_obs_at(pts_ind, cam_ind, N, M))
+    dup = np.concatenate([pts_ind, pts_ind[:1]]), np.concatenate([cam_ind, cam_ind[:1]])
+    assert tlm.build_obs_at(*dup, N, M) is None and jlm.build_obs_at(*dup, N, M) is None
+
+
+def test_build_problem_matches_jax():
+    """The port's LMProblem holds JAX's tables; the kernel's two layouts are
+    int32 and every other index table int64."""
+    scene = jax_scene(n_cam=8, n_pts=400, seed=6)
+    jp, tp = both_problems(scene)
+    jprob, jmode = jsolver.build_problem(jp)
+    tprob, tmode = tsolver.build_problem(tp, "cpu")
+    assert tmode == jmode == "dense"
+    assert tsolver.build_problem(tp, "cpu", "cg")[1] == "cg"
+    for name in tlm.LMProblem._fields:
+        a, b = getattr(tprob, name), getattr(jprob, name)
+        assert (a is None) == (b is None), name
+        if a is None:
+            continue
+        assert a.device.type == "cpu"
+        if name in ("cam_ind_pt", "pts_ind_cam"):
+            assert a.dtype == torch.int32
+        elif a.dtype.is_floating_point:
+            assert a.dtype == torch.float64
+        else:
+            assert a.dtype == torch.int64
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
