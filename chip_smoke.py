@@ -26,11 +26,24 @@ no result line, where CUDA is not available. It
      kernels that take the device time;
   7. solves a 16-camera problem on the CPU (plain operator) and on the
      card (kernel), which must agree;
+  8. slice C: the tracks front end at the config #2 scale (10 views of
+     2000x2000 px, FT_kp_max 40000, epipolar_based matching, in-memory
+     handoff) through FeatureTracksPipeline.build_feature_tracks on frames
+     rendered in memory, then its tracks through the bundle-adjustment
+     stage (triangulation, soft-L1, outlier removal, L2), which must bring
+     the mean reprojection error from above 0.5 px to below 0.3 px;
+  9. holds the three 2-NN entry points against their plain versions at the
+     operands of slice C's largest kernel chunk, and times them;
+ 10. re-runs the detection of two of slice C's frames under torch.profiler
+     (device busy time, idle share, top kernels);
+ 11. detects one 512x512 frame on the card and on the CPU: the keypoint
+     counts must agree within 1%;
 
 and ends with a JSON line per kernel ({"kernels": [...]}) and the result
 line {"ok": true, "device": {...}}. Kernel launch counters are set to 0
 just before each slice and read just after it: a kernel of the path that
-a slice did not launch fails the run.
+a slice did not launch fails the run, and so does a launch of the f32 2-NN
+kernels in slice C, whose SIFT descriptors must take the int8 kernel.
 """
 
 import argparse
@@ -44,10 +57,21 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12
+# dense tensor-core rates: int8 and TF32
+PEAK_I8_TC_PER_S = 1979e12
+PEAK_TF32_TC_PER_S = 495e12
 
 SOFT_L1 = {"loss": "soft_l1", "f_scale": 1.0, "max_iter": 300}
 SLICE_B_MAX_ITER = 30
 SLICE_B_MAX_REPROJ = 0.100
+# slice C: scripts/run_scale_e2e.py config2 (10 views, 2000x2000 px, terrain
+# at the cameras' altitude offset, +-3 px RPC biases, camera 0 the anchor)
+SLICE_C = {"views": 10, "h": 2000, "w": 2000, "alt": 50.0, "n_tex": 2048, "tex_octaves": 5,
+           "bias_px": 3.0}
+SLICE_C_TRACKS_CONFIG = {"FT_kp_max": 40000, "FT_sift_matching": "epipolar_based",
+                         "FT_save": False, "FT_reset": True}
+SLICE_C_REPROJ_BEFORE_MIN = 0.5
+SLICE_C_REPROJ_AFTER_MAX = 0.3
 
 
 def log(*args):
@@ -177,6 +201,23 @@ def solve_round(solver, ls, label):
     return cam, pts, e1, rec
 
 
+def device_busy(label, prof):
+    """Device busy time of a torch.profiler window (the union of the
+    kernels' spans, us), kernel time by name, and the kernel events."""
+    import torch
+
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kern, "{}: the profiler saw no device activity".format(label)
+    busy_us, end = 0.0, float("-inf")
+    by_name = {}
+    for e in sorted(kern, key=lambda e: e.time_range.start):
+        s, t = e.time_range.start, e.time_range.end
+        busy_us += max(0.0, t - max(s, end))
+        end = max(end, t)
+        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+    return busy_us, by_name, kern
+
+
 def profile_window(label, solver, ls, wall_per_it):
     """Re-run a solve under torch.profiler: device busy time (the union of
     the kernels' spans), kernels per LM iteration, the operator kernels'
@@ -189,15 +230,7 @@ def profile_window(label, solver, ls, wall_per_it):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         *_, info = solver.solve(ls)
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert kern, "{}: the profiler saw no device activity".format(label)
-    busy_us, end = 0.0, float("-inf")
-    by_name = {}
-    for e in sorted(kern, key=lambda e: e.time_range.start):
-        s, t = e.time_range.start, e.time_range.end
-        busy_us += max(0.0, t - max(s, end))
-        end = max(end, t)
-        by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+    busy_us, by_name, kern = device_busy(label, prof)
     total_us = sum(by_name.values())
     schur_us = sum(v for k, v in by_name.items() if "point_pass" in k or "camera_pass" in k)
     its = max(info["iterations"], 1)
@@ -333,6 +366,277 @@ def small_reference(dev):
     return {"cpu": out["cpu"], "cuda": out[str(dev)]}
 
 
+def render_scene_c(dev):
+    """Slice C's views, rendered in memory: uint8 frames of a 2048^2 texture
+    of 5 noise octaves through synthetic RPCs, and SatelliteImages whose
+    RPCs carry per-camera biases of up to +-3 px (camera 0 unbiased), with
+    footprints at the terrain altitude and camera centers set."""
+    import numpy as np
+
+    from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    c = SLICE_C
+    ims, rpcs = demo.render_synthetic_images(
+        n_cam=c["views"], h=c["h"], w=c["w"], seed=0, alt=c["alt"], n_tex=c["n_tex"],
+        tex_octaves=c["tex_octaves"], device=dev)
+    rng = np.random.RandomState(1)
+    images = []
+    for k, (im, rpc) in enumerate(zip(ims, rpcs)):
+        bias = np.zeros(2) if k == 0 else rng.uniform(-c["bias_px"], c["bias_px"], 2)
+        rpc = rpc._replace(col_offset=rpc.col_offset + bias[0],
+                           row_offset=rpc.row_offset + bias[1])
+        frame = (im * 255).astype(np.uint8)
+        si = SatelliteImage(frame, rpc, offset={"col0": 0, "row0": 0, "height": c["h"],
+                                                "width": c["w"]})
+        si.set_footprint(alt=c["alt"])
+        si.set_camera_center()
+        images.append(si)
+    return images
+
+
+def slice_c(dev, counters):
+    """The tracks front end at the config #2 scale, and its tracks through
+    the bundle-adjustment stage."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ba import outliers
+    from sat_bundleadjust_tpu_torch.ba.params import BAParams
+    from sat_bundleadjust_tpu_torch.ba.solver import BASolver
+    from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
+    from sat_bundleadjust_tpu_torch.tracks.pipeline import FeatureTracksPipeline
+
+    t0 = time.time()
+    images = render_scene_c(dev)
+    render_s = time.time() - t0
+    log("slice C: {} views of {}x{} px rendered in memory in {:.2f} s; route: "
+        "FeatureTracksPipeline.build_feature_tracks on the in-memory frames".format(
+            len(images), SLICE_C["h"], SLICE_C["w"], render_s))
+
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t_path = time.time()
+    with tempfile.TemporaryDirectory(prefix="slice_c_") as out_dir:
+        ft = FeatureTracksPipeline(out_dir, out_dir, {"images": images, "n_adj": 0, "aoi": None},
+                                   tracks_config=dict(SLICE_C_TRACKS_CONFIG), device=dev)
+        bundle, tracks_total_s = ft.build_feature_tracks()
+    kp = [int(np.sum(~np.isnan(f[:, 0]))) for f in bundle["features"]]
+    C = bundle["C"]
+    assert C is not None and C.shape[0] == 2 * len(images) and C.shape[1] > 1000, (
+        None if C is None else C.shape)
+    timing = dict(ft.timing)
+
+    pts3d = init_pts3d(C, [im.rpc for im in images], "rpc", bundle["pairs_to_triangulate"],
+                       device=dev)
+    p = BAParams(C, pts3d, [im.rpc for im in images], "rpc", bundle["pairs_to_triangulate"],
+                 [im.center for im in images], {"verbose": False})
+    _, _, e_soft, soft = solve_round(BASolver(p, device=dev), SOFT_L1, "slice C soft-L1")
+    p2 = outliers.rm_outliers(e_soft, p, device=dev)
+    _, _, e_l2, l2 = solve_round(BASolver(p2, device=dev), None, "slice C L2")
+    torch.cuda.synchronize()
+    path_s = time.time() - t_path
+    launches = {k.__name__: k.launches for k in counters}
+
+    log("slice C tracks: keypoints per frame {}; {} pairs to match, {} pairwise matches, "
+        "{} tracks ({} observations)".format(kp, len(bundle["pairs_to_match"]),
+                                             bundle["pairwise_matches"].shape[0], C.shape[1],
+                                             int(np.sum(~np.isnan(C[::2])))))
+    stages = [("detection", "detection_s"), ("pairs", "pairs_s"), ("F init", "F_init_s"),
+              ("staging", "stage_s"), ("device 2-NN", "nn_s"),
+              ("  of which enqueue", "nn_enqueue_s"), ("  of which drain", "nn_drain_s"),
+              ("RANSAC/UTM finalize", "finalize_s"), ("  of which RANSAC", "ransac_s"),
+              ("  of which UTM", "utm_s"), ("tracks", "tracks_s")]
+    log("slice C stage times: " + "; ".join(
+        "{} {:.3f} s".format(name, timing.get(key, float("nan"))) for name, key in stages)
+        + "; tracks front end {:.3f} s".format(tracks_total_s))
+    log("slice C BA: {} obs, {} tracks; soft-L1 {:.4f} -> {:.4f} px; outliers removed {}; "
+        "L2 -> {:.4f} px (mean); kernel launches {}".format(
+            p.n_obs, p.n_pts, soft["reproj_before_mean"], soft["reproj_after_mean"],
+            p.n_obs - p2.n_obs, l2["reproj_after_mean"], launches))
+    assert launches["nn2_batched_i8"] > 0, launches
+    assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
+    assert launches["schur_wz"] == soft["matvecs"] + l2["matvecs"] > 0, launches
+    assert soft["reproj_before_mean"] > SLICE_C_REPROJ_BEFORE_MIN, soft["reproj_before_mean"]
+    assert l2["reproj_after_mean"] < SLICE_C_REPROJ_AFTER_MAX, l2["reproj_after_mean"]
+    return {"render_s": render_s, "keypoints": kp, "pairs": len(bundle["pairs_to_match"]),
+            "pairwise_matches": int(bundle["pairwise_matches"].shape[0]),
+            "tracks": int(C.shape[1]), "timing": timing, "tracks_total_s": tracks_total_s,
+            "path_s": path_s, "soft_l1": soft, "l2": l2, "removed": p.n_obs - p2.n_obs,
+            "launches": launches, "ft": ft, "images": images}
+
+
+def profile_detection(images, dev, n=2):
+    """Detection of n of slice C's frames: unprofiled wall (warm), then the
+    same call under torch.profiler for the device's busy time, its idle
+    share against the unprofiled wall, and the kernels that take it."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    frames = [np.asarray(im.geotiff_path, np.float32) for im in images[:n]]
+    kw = {"max_kp": SLICE_C_TRACKS_CONFIG["FT_kp_max"], "device": dev}
+    sift.detect_sift_batch(frames, **kw)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sift.detect_sift_batch(frames, **kw)
+    torch.cuda.synchronize()
+    wall_s = time.time() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sift.detect_sift_batch(frames, **kw)
+        torch.cuda.synchronize()
+    busy_us, by_name, kern = device_busy("detection", prof)
+    total_us = sum(by_name.values())
+    rec = {"frames": n, "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+           "idle_share": 1.0 - busy_us / 1e6 / wall_s, "kernels": len(kern),
+           "top": sorted(((v / total_us, k[:60]) for k, v in by_name.items()), reverse=True)[:8]}
+    log("profile [detection, {} frames of slice C]: {:.3f} s of wall, device busy {:.3f} s "
+        "(idle share {:.1%}); {} device kernels; top: {}".format(
+            n, wall_s, rec["device_busy_s"], rec["idle_share"], len(kern),
+            "; ".join("{:.1%} {}".format(*x) for x in rec["top"])))
+    return rec
+
+
+def largest_staged_chunk(ft, images, dev):
+    """The int8 kernel's operands of slice C's largest chunk, rebuilt as
+    match_stereo_pairs builds them (UTM boxes, staged frames, chunks)."""
+    from sat_bundleadjust_tpu_torch.ops import match as match_ops
+    from sat_bundleadjust_tpu_torch.tracks import matching
+    from sat_bundleadjust_tpu_torch.utils.geo import geojson_to_polygon
+
+    F = matching.init_F_pairs_batched(ft.pairs_to_match, images)
+    pair_frames, pair_idx, pair_F = [], [], []
+    for q, (i, j) in enumerate(ft.pairs_to_match):
+        poly = geojson_to_polygon(ft.footprints[i]["geojson"]).intersection(
+            geojson_to_polygon(ft.footprints[j]["geojson"]))
+        if poly.coords.shape[0] < 3:
+            continue
+        idx_i, idx_j = matching.utm_bbox_indices(ft.features_utm[i], ft.features_utm[j], poly)
+        if len(idx_i) and len(idx_j):
+            pair_frames.append((i, j))
+            pair_idx.append((idx_i, idx_j))
+            pair_F.append(F[q])
+    staged = match_ops.stage_frames_for_matching(ft.features, device=dev)
+    chunks = list(match_ops.staged_chunks(pair_idx))
+    chunk, n1, n2 = max(chunks, key=lambda c: len(c[0]) * c[1] * c[2])
+    arrays = match_ops.staged_chunk_arrays(chunk, n1, n2, pair_frames, pair_idx, pair_F,
+                                           match_ops.EPIPOLAR_THR)
+    return match_ops.staged_chunk_operands(staged, arrays), len(chunks)
+
+
+def nn2_bound(mi, mj, desc_bytes, peak_ops):
+    """Least time of a 2-NN call: the cross term's operations on the valid
+    rows and columns of each pair at the tensor-core rate, against each
+    input read once and the packed output written once."""
+    n1 = mi.sum(dim=1).double()
+    n2 = mj.sum(dim=1).double()
+    ops = float((2.0 * 128 * n1 * n2).sum())
+    # descriptor, line or point (12 B) and validity (4 B) per row; thr; output
+    nbytes = float(((n1 + n2) * (desc_bytes + 12 + 4)).sum() + 4 * mi.shape[0] + 12 * n1.sum())
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
+
+
+def check_nn2(ft, images, dev):
+    """The three 2-NN entry points against their plain versions at the
+    operands of slice C's largest staged chunk."""
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
+
+    (di, dj, li, hj, mi, mj, thr), n_chunks = largest_staged_chunk(ft, images, dev)
+    B, n1, n2 = di.shape[0], di.shape[1], dj.shape[1]
+    a = nm.nn2_batched_i8(di, dj, li, hj, mi, mj, thr)
+    b = nm.nn2_batched_i8(di, dj, li, hj, mi, mj, thr)
+    plain = nm.nn2_plain(di, dj, li, hj, mi, mj, thr)
+    dif = (di.float() + 128.0).contiguous()
+    djf = (dj.float() + 128.0).contiguous()
+    f = nm.nn2_batched(dif, djf, li, hj, mi, mj, thr)
+    g = torch.Generator(dev).manual_seed(3)
+    din = (dif + torch.rand(dif.shape, generator=g, device=dev)).contiguous()
+    djn = (djf + torch.rand(djf.shape, generator=g, device=dev)).contiguous()
+    fn = nm.nn2_batched(din, djn, li, hj, mi, mj, thr)
+    fn_plain = nm.nn2_plain(din, djn, li, hj, mi, mj, thr)
+    s = nm.nn2_single(dif[0], djf[0], li[0], hj[0], mi[0], mj[0], float(thr[0]))
+    s_plain = nm.nn2_plain(dif[:1], djf[:1], li[:1], hj[:1], mi[:1], mj[:1], thr[:1])[0]
+    torch.cuda.synchronize()
+
+    assert torch.equal(a, plain), "nn2_batched_i8 differs from its plain version"
+    assert torch.equal(a, b), "nn2_batched_i8: two launches differ"
+    assert torch.equal(f, a), "nn2_batched on integer descriptors differs from the int8 kernel"
+    s_packed = torch.stack([s[0], s[1], s[2].float()])
+    assert torch.equal(s_packed, a[0]) and torch.equal(s_packed, s_plain), "nn2_single differs"
+    # non-integer descriptors: distances are differences of terms up to
+    # S = max sq_i + max sq_j, summed in other orders by kernel and cuBLAS
+    S = float((din * din).sum(-1).max() + (djn * djn).sum(-1).max())
+    tol = 16 * torch.finfo(torch.float32).eps * S
+    err_f = float((fn[:, :2] - fn_plain[:, :2]).abs().max())
+    # an argmin may move only between two columns within 2 tol of each other
+    moved = fn[:, 2] != fn_plain[:, 2]
+    argmin_diff = float(moved.float().mean())
+    near_tie = bool(((fn_plain[:, 1] - fn_plain[:, 0])[moved] <= 2 * tol).all())
+    assert err_f <= tol and near_tie, (err_f, tol, argmin_diff)
+    n_valid = int(mi.sum())
+    n_found = int((a[:, 0] < nm.BIG).sum())
+    log("2-NN at the largest of slice C's {} staged chunks: B={} n1={} n2={} ({} valid rows, "
+        "{} with a neighbour); int8 kernel bit-identical to plain and repeatable; f32 kernel "
+        "on the same integer descriptors bit-identical; f32 on non-integer descriptors "
+        "max|err| {:.3g} (tolerance {:.3g} = 16 ulp of S={:.4g}), argmin differs in {:.2e} of "
+        "rows; single-pair entry equal to row 0".format(
+            n_chunks, B, n1, n2, n_valid, n_found, err_f, tol, S, argmin_diff))
+
+    out = {}
+    plain_rounds = 3
+    cases = (
+        ("nn2_batched_i8", lambda: nm.nn2_batched_i8(di, dj, li, hj, mi, mj, thr),
+         lambda: nm.nn2_plain(di, dj, li, hj, mi, mj, thr), 20, mi, mj, 128, PEAK_I8_TC_PER_S, 0.0),
+        ("nn2_batched", lambda: nm.nn2_batched(din, djn, li, hj, mi, mj, thr),
+         lambda: nm.nn2_plain(din, djn, li, hj, mi, mj, thr), 10, mi, mj, 512,
+         PEAK_TF32_TC_PER_S, err_f),
+        ("nn2_single", lambda: nm.nn2_single(dif[0], djf[0], li[0], hj[0], mi[0], mj[0],
+                                             float(thr[0])),
+         lambda: nm.nn2_plain(dif[:1], djf[:1], li[:1], hj[:1], mi[:1], mj[:1], thr[:1]), 50,
+         mi[:1], mj[:1], 512, PEAK_TF32_TC_PER_S, 0.0),
+    )
+    for name, fn_k, fn_p, reps, m_i, m_j, desc_bytes, peak, err in cases:
+        ms = cuda_ms(fn_k, reps)
+        plain_ms = cuda_ms(fn_p, 1, rounds=plain_rounds)
+        bound_ms, bound_by, ops, nbytes = nn2_bound(m_i, m_j, desc_bytes, peak)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "ops": ops, "bytes": nbytes, "max_abs_err": err,
+                     "shape": {"B": int(m_i.shape[0]), "n1": n1, "n2": n2}}
+        log("{}: kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; {:.3g} ops, "
+            "{:.1f} MB)".format(name, ms, plain_ms, bound_ms, bound_by, ops, nbytes / 1e6))
+    return out
+
+
+def sift_device_check(dev):
+    """One 512x512 rendered frame detected on the card and on the CPU."""
+    import numpy as np
+
+    from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    ims, _ = demo.render_synthetic_images(n_cam=1, h=512, w=512, seed=0, alt=0.0, device=dev)
+    t0 = time.time()
+    f_gpu = sift.detect_sift(ims[0], device=dev)
+    t1 = time.time()
+    f_cpu = sift.detect_sift(ims[0], device="cpu")
+    t2 = time.time()
+    n_gpu, n_cpu = f_gpu.shape[0], f_cpu.shape[0]
+    same = n_gpu == n_cpu and bool(np.array_equal(f_gpu, f_cpu))
+    log("SIFT 512x512: card {} keypoints in {:.2f} s, CPU {} in {:.2f} s; identical arrays: "
+        "{}".format(n_gpu, t1 - t0, n_cpu, t2 - t1, same))
+    assert n_cpu > 100 and abs(n_gpu - n_cpu) <= 0.01 * n_cpu, (n_gpu, n_cpu)
+    assert np.array_equal(f_gpu[:, 4:], np.rint(f_gpu[:, 4:]))
+    return {"card": n_gpu, "cpu": n_cpu, "card_s": t1 - t0, "cpu_s": t2 - t1, "identical": same}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full record as JSON to this file")
@@ -348,6 +652,7 @@ def main():
 
     import sat_bundleadjust_tpu_torch  # noqa: F401  (pins the precision flags)
     from sat_bundleadjust_tpu_torch.ops import _build
+    from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -376,26 +681,45 @@ def main():
     rec["slice_b"] = slice_b(dev, kernels)
     rec["small_reference"] = small_reference(dev)
     rec["schur_wz"] = {"A": kernels["A"], "B": kernels["B"]}
+    c = slice_c(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz])
+    images = c.pop("images")
+    rec["nn2"] = check_nn2(c.pop("ft"), images, dev)
+    rec["detection_profile"] = profile_detection(images, dev)
+    rec["slice_c"] = c
+    rec["sift_device_check"] = sift_device_check(dev)
     rec["total_s"] = time.time() - t_start
     log("total {:.1f} s".format(rec["total_s"]))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(rec, f, indent=1)
+            json.dump(rec, f, indent=1, default=str)
 
     b = kernels["B"]
-    line = {"kernels": [{
+    entries = [{
         "name": "schur_wz", "route": "cuda",
         "source": "sat_bundleadjust_tpu_torch/csrc/schur_matvec.cu",
         "replaces": "sat_bundleadjust_tpu/ops/pallas_matvec.py:263",
-        "launches": rec["slice_a"]["launches"]["schur_wz"] + rec["slice_b"]["launches"]["schur_wz"],
+        "launches": (rec["slice_a"]["launches"]["schur_wz"] + rec["slice_b"]["launches"]["schur_wz"]
+                     + c["launches"]["schur_wz"]),
         "max_abs_err": max(kernels["A"]["max_abs_err"], b["max_abs_err"]),
         "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
         "bound_by": b["bound_by"], "library_ms": None,
         "at": "slice B shape (M=1000, K=800000); slice A: ms {:.5f}, plain_ms {:.5f}, "
               "bound_ms {:.5f}".format(kernels["A"]["ms"], kernels["A"]["plain_ms"],
                                        kernels["A"]["bound_ms"]),
-    }]}
-    print(json.dumps(line))
+    }]
+    replaces = {"nn2_batched_i8": "sat_bundleadjust_tpu/ops/pallas_match.py:240",
+                "nn2_batched": "sat_bundleadjust_tpu/ops/pallas_match.py:294",
+                "nn2_single": "sat_bundleadjust_tpu/ops/pallas_match.py:353"}
+    for name, where in replaces.items():
+        k = rec["nn2"][name]
+        entries.append({
+            "name": name, "route": "cuda", "source": "sat_bundleadjust_tpu_torch/csrc/nn2_match.cu",
+            "replaces": where, "launches": c["launches"][name], "max_abs_err": k["max_abs_err"],
+            "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": None,
+            "at": "slice C's largest staged chunk, B={B} n1={n1} n2={n2}".format(**k["shape"]),
+        })
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,12 +1,18 @@
-"""sat_bundleadjust_tpu_torch — the bundle-adjustment stage in PyTorch + CUDA.
+"""sat_bundleadjust_tpu_torch — the tracks front end and the bundle-adjustment
+stage in PyTorch + CUDA.
 
 A port of the JAX package `sat_bundleadjust_tpu` to PyTorch on an NVIDIA
-Hopper card. It covers the pipeline's bundle-adjustment stage: the problem
-parameterization (`ba.params`), the Levenberg-Marquardt solve with the
-matrix-free CG Schur solver (`ops.lm`, `ba.solver`), outlier rejection with
-re-triangulation (`ba.outliers`, `ops.triangulate`) and the RPC geometry
-they run on (`models`). The CG operator is a hand-written CUDA kernel
-(`ops.schur_matvec`, source `csrc/schur_matvec.cu`).
+Hopper card. It covers
+* the tracks front end: SIFT detection (`ops.sift`), pair selection, the
+  epipolar F init, 2-NN matching, RANSAC and the union-find tracks
+  (`tracks.pipeline.FeatureTracksPipeline`); the 2-NN matchers are
+  hand-written CUDA kernels (`ops.nn2_match`, source `csrc/nn2_match.cu`);
+* the bundle-adjustment stage: the problem parameterization (`ba.params`),
+  the Levenberg-Marquardt solve with the matrix-free CG Schur solver
+  (`ops.lm`, `ba.solver`), outlier rejection with re-triangulation
+  (`ba.outliers`, `ops.triangulate`) and the RPC geometry they run on
+  (`models`); the CG operator is a hand-written CUDA kernel
+  (`ops.schur_matvec`, source `csrc/schur_matvec.cu`).
 
 Conventions:
 * entry points take `device=`; the default is the CUDA card, and asking for

@@ -56,3 +56,18 @@ def ecef_to_latlon(x, y, z):
 def ecef_to_latlon_arr(pts3d):
     """(..., 3) ECEF -> (lat, lon, alt) tuple."""
     return ecef_to_latlon(pts3d[..., 0], pts3d[..., 1], pts3d[..., 2])
+
+
+def latlon_to_ecef_np(lat, lon, alt):
+    """Numpy twin of latlon_to_ecef (host-side, float64)."""
+    import numpy as np
+
+    rad_lat = np.asarray(lat, dtype=np.float64) * (np.pi / 180.0)
+    rad_lon = np.asarray(lon, dtype=np.float64) * (np.pi / 180.0)
+    alt = np.asarray(alt, dtype=np.float64)
+    sin_lat = np.sin(rad_lat)
+    v = _A / np.sqrt(1.0 - _E2 * sin_lat * sin_lat)
+    x = (v + alt) * np.cos(rad_lat) * np.cos(rad_lon)
+    y = (v + alt) * np.cos(rad_lat) * np.sin(rad_lon)
+    z = (v * (1.0 - _E2) + alt) * sin_lat
+    return x, y, z

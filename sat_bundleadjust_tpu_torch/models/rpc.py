@@ -189,3 +189,115 @@ def rpc_localization(rpc, col, row, alt, n_iters=NEWTON_ITERS):
         dlat = (-r_dlon * fx + c_dlon * fy) / safe
         nlon, nlat = nlon - dlon, nlat - dlat
     return nlon * rpc.lon_scale + rpc.lon_offset, nlat * rpc.lat_scale + rpc.lat_offset
+
+
+# ----------------------------------------------------------------------
+# numpy twins (host-side evaluation), sat_bundleadjust_tpu/models/rpc.py:322-416
+# ----------------------------------------------------------------------
+
+
+def _np_basis(x, y, z):
+    """RPC00B monomial basis in numpy; x = lat_n, y = lon_n, z = alt_n."""
+    one = np.ones_like(x)
+    return np.stack(
+        [
+            one, y, x, z, y * x, y * z, x * z, y * y, x * x, z * z,
+            x * y * z, y ** 3, y * x * x, y * z * z, y * y * x,
+            x ** 3, x * z * z, y * y * z, x * x * z, z ** 3,
+        ],
+        axis=-1,
+    )
+
+
+def rpc_projection_np(rpc, lon, lat, alt):
+    """Numpy twin of rpc_projection (float64, no device)."""
+    r = rpc
+    lon = np.asarray(lon, dtype=np.float64)
+    lat = np.asarray(lat, dtype=np.float64)
+    alt = np.asarray(alt, dtype=np.float64)
+    nlon = (lon - np.asarray(r.lon_offset)) / np.asarray(r.lon_scale)
+    nlat = (lat - np.asarray(r.lat_offset)) / np.asarray(r.lat_scale)
+    nalt = (alt - np.asarray(r.alt_offset)) / np.asarray(r.alt_scale)
+    b = _np_basis(nlat, nlon, nalt)
+    col = np.sum(b * np.asarray(r.samp_num), axis=-1) / np.sum(b * np.asarray(r.samp_den), axis=-1)
+    row = np.sum(b * np.asarray(r.line_num), axis=-1) / np.sum(b * np.asarray(r.line_den), axis=-1)
+    return (
+        col * np.asarray(r.col_scale) + np.asarray(r.col_offset),
+        row * np.asarray(r.row_scale) + np.asarray(r.row_offset),
+    )
+
+
+def rpc_localization_np(rpc, col, row, alt, n_iters=NEWTON_ITERS):
+    """Numpy twin of rpc_localization: the same Newton iteration on the
+    forward model with the analytic 2x2 Jacobian."""
+    r = rpc
+    col = np.asarray(col, dtype=np.float64)
+    row = np.asarray(row, dtype=np.float64)
+    alt = np.asarray(alt, dtype=np.float64)
+    tcol = (col - np.asarray(r.col_offset)) / np.asarray(r.col_scale)
+    trow = (row - np.asarray(r.row_offset)) / np.asarray(r.row_scale)
+    nalt = (alt - np.asarray(r.alt_offset)) / np.asarray(r.alt_scale)
+
+    samp_num = np.asarray(r.samp_num)
+    samp_den = np.asarray(r.samp_den)
+    line_num = np.asarray(r.line_num)
+    line_den = np.asarray(r.line_den)
+
+    def basis_d(x, y, z, kind):
+        zero = np.zeros_like(x)
+        one = np.ones_like(x)
+        if kind == "dlat":  # d/dx
+            return np.stack(
+                [zero, zero, one, zero, y, zero, z, zero, 2 * x, zero,
+                 y * z, zero, 2 * x * y, zero, y * y, 3 * x * x, z * z, zero,
+                 2 * x * z, zero], axis=-1)
+        # d/dy (lon)
+        return np.stack(
+            [zero, one, zero, zero, x, z, zero, 2 * y, zero, zero,
+             x * z, 3 * y * y, x * x, z * z, 2 * y * x, zero, zero,
+             2 * y * z, zero, zero], axis=-1)
+
+    nlon = np.zeros_like(tcol)
+    nlat = np.zeros_like(trow)
+    for _ in range(n_iters):
+        b = _np_basis(nlat, nlon, nalt)
+        b_dlat = basis_d(nlat, nlon, nalt, "dlat")
+        b_dlon = basis_d(nlat, nlon, nalt, "dlon")
+
+        def rational(num, den):
+            p = np.sum(b * num, axis=-1)
+            q = np.sum(b * den, axis=-1)
+            v = p / q
+            v_dlat = (np.sum(b_dlat * num, axis=-1) - v * np.sum(b_dlat * den, axis=-1)) / q
+            v_dlon = (np.sum(b_dlon * num, axis=-1) - v * np.sum(b_dlon * den, axis=-1)) / q
+            return v, v_dlon, v_dlat
+
+        c, c_dlon, c_dlat = rational(samp_num, samp_den)
+        rr, r_dlon, r_dlat = rational(line_num, line_den)
+        fx = c - tcol
+        fy = rr - trow
+        det = c_dlon * r_dlat - c_dlat * r_dlon
+        det = np.where(np.abs(det) < 1e-30, 1.0, det)
+        nlon = nlon - (r_dlat * fx - c_dlat * fy) / det
+        nlat = nlat - (-r_dlon * fx + c_dlon * fy) / det
+
+    return (
+        nlon * np.asarray(r.lon_scale) + np.asarray(r.lon_offset),
+        nlat * np.asarray(r.lat_scale) + np.asarray(r.lat_offset),
+    )
+
+
+def rpc_from_dict(d):
+    """An RPCModel with numpy fields from a dict of floats/lists (keys =
+    field names)."""
+    def arr20(v):
+        a = np.asarray(v, dtype=np.float64)
+        if a.shape[-1] != N_COEFFS:
+            raise ValueError("RPC coefficient vector of shape {}".format(a.shape))
+        return a
+
+    return RPCModel(
+        line_num=arr20(d["line_num"]), line_den=arr20(d["line_den"]),
+        samp_num=arr20(d["samp_num"]), samp_den=arr20(d["samp_den"]),
+        **{k: np.float64(d[k]) for k in RPCModel._fields[4:]},
+    )

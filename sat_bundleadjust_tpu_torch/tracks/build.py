@@ -1,0 +1,111 @@
+"""Feature track construction.
+
+Counterpart of `sat_bundleadjust_tpu/tracks/build.py` (host numpy, as
+there): union-find over the pairwise matches into the correspondence matrix
+C (2M x N) and the keypoint-id matrix C_v2 (M x N). The camera
+connectivity checks come with the pipeline orchestration. The union-find is the repository's committed C++
+library `native/libtrackbuild.so`, loaded read-only through ctypes, with an
+iterative path-halving Python fallback where it cannot be loaded.
+"""
+
+import ctypes
+import os
+
+import numpy as np
+
+from sat_bundleadjust_tpu_torch.ba.outliers import filter_C_using_pairs_to_triangulate
+
+_NATIVE_LIB = None
+_NATIVE_TRIED = False
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _load_native():
+    """ctypes handle to native/libtrackbuild.so, or None if unavailable."""
+    global _NATIVE_LIB, _NATIVE_TRIED
+    if _NATIVE_TRIED:
+        return _NATIVE_LIB
+    _NATIVE_TRIED = True
+    path = os.path.join(_REPO, "native", "libtrackbuild.so")
+    if os.path.exists(path):
+        try:
+            lib = ctypes.CDLL(path)
+        except OSError:
+            return None
+        i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+        lib.uf_build.restype = None
+        lib.uf_build.argtypes = [ctypes.c_int64, i64p, i64p, ctypes.c_int64, i64p]
+        _NATIVE_LIB = lib
+    return _NATIVE_LIB
+
+
+def union_find(n, edges_a, edges_b):
+    """Union-find over match edges; returns the root of each element (the
+    native library, else the Python path-halving fallback)."""
+    edges_a = np.ascontiguousarray(edges_a, dtype=np.int64)
+    edges_b = np.ascontiguousarray(edges_b, dtype=np.int64)
+    lib = _load_native()
+    if lib is not None:
+        roots = np.empty(n, dtype=np.int64)
+        lib.uf_build(n, edges_a, edges_b, len(edges_a), roots)
+        return roots
+
+    parent = np.arange(n, dtype=np.int64)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    for a, b in zip(edges_a.tolist(), edges_b.tolist()):
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[ra] = rb
+    for i in range(n):
+        parent[i] = find(i)
+    return parent
+
+
+def feature_tracks_from_pairwise_matches(features, pairwise_matches, pairs_to_triangulate):
+    """Build C (2M, N) and C_v2 (M, N) from pairwise matches.
+
+    features: per-image (N_i, 132) keypoint arrays or .npy paths;
+    pairwise_matches: (K, 4) int rows (kp_i, kp_j, im_i, im_j);
+    pairs_to_triangulate: camera index pairs (a track needs one)."""
+    loaded = [np.load(f, mmap_mode="r") if isinstance(f, str) else np.asarray(f) for f in features]
+    n_cams = len(loaded)
+    kp_counts = [f.shape[0] for f in loaded]
+    id_offsets = np.concatenate([[0], np.cumsum(kp_counts)])[:-1]
+
+    pm = np.asarray(pairwise_matches, dtype=np.int64)
+    kp_i, kp_j, im_i, im_j = pm[:, 0], pm[:, 1], pm[:, 2], pm[:, 3]
+    ids_i = id_offsets[im_i] + kp_i
+    ids_j = id_offsets[im_j] + kp_j
+
+    parents = union_find(int(np.sum(kp_counts)), ids_i, ids_j)
+
+    # tracks = roots appearing at least twice
+    uniq, inverse, counts = np.unique(parents, return_inverse=True, return_counts=True)
+    is_track_root = counts > 1
+    track_idx_of_root = np.full(len(uniq), -1, dtype=np.int64)
+    track_idx_of_root[is_track_root] = np.arange(int(np.sum(is_track_root)))
+    track_of_kp = track_idx_of_root[inverse]
+    n_tracks = int(np.sum(is_track_root))
+
+    C = np.full((2 * n_cams, n_tracks), np.nan)
+    C_v2 = np.full((n_cams, n_tracks), np.nan)
+
+    t_idx = track_of_kp[ids_i]
+    all_xy = np.concatenate([np.asarray(f[:, :2]) for f in loaded], axis=0)
+    coords_i = all_xy[ids_i]
+    coords_j = all_xy[ids_j]
+    C[2 * im_i, t_idx] = coords_i[:, 0]
+    C[2 * im_i + 1, t_idx] = coords_i[:, 1]
+    C[2 * im_j, t_idx] = coords_j[:, 0]
+    C[2 * im_j + 1, t_idx] = coords_j[:, 1]
+    C_v2[im_i, t_idx] = kp_i
+    C_v2[im_j, t_idx] = kp_j
+
+    keep = filter_C_using_pairs_to_triangulate(C, pairs_to_triangulate)
+    return C[:, keep], C_v2[:, keep]

@@ -1,0 +1,97 @@
+"""Keypoint detection over an image sequence.
+
+Counterpart of `sat_bundleadjust_tpu/tracks/detection.py` on its "tpu"
+backend (the package's own scale-space SIFT, `ops/sift.py`; the reference
+name "s2p" is an alias): same-shape images are detected in batches on
+`device`, and every image's keypoints come out in the common layout, (N,
+132) float rows (col, row, scale, orientation, 128-d descriptor), sorted by
+descending scale and NaN-padded to FT_kp_max. One process; the npy cache of
+features/ is read and written as there. The "opencv" backend is not ported
+yet.
+"""
+
+import os
+
+import numpy as np
+
+from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.utils import io as loader
+from sat_bundleadjust_tpu_torch.utils.io import flush_print, get_id
+
+
+def _top_k_by_scale(features, max_kp):
+    """Sort by descending scale and NaN-pad to max_kp."""
+    if features.shape[0] > 0:
+        features = features[np.argsort(-features[:, 2], kind="stable")]
+    if max_kp is None:
+        return features
+    out = np.full((max_kp, 132), np.nan)
+    n = min(features.shape[0], max_kp)
+    out[:n] = features[:n]
+    return out
+
+
+def _apply_mask(features, mask):
+    pts = features[:, :2].astype(np.int64)
+    h, w = mask.shape
+    pts[:, 0] = np.clip(pts[:, 0], 0, w - 1)
+    pts[:, 1] = np.clip(pts[:, 1], 0, h - 1)
+    inside = mask[pts[:, 1], pts[:, 0]] > 0
+    return features[inside]
+
+
+def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
+                                   tracks_config=None, device=None):
+    """Detect keypoints over an image sequence, with the features/ npy cache.
+
+    geotiff_paths: image paths (or arrays already in memory, see
+    utils/io.load_image); mask_paths: optional per-image .npy masks;
+    offsets: optional crop offsets. Returns a list of (FT_kp_max, 132)
+    arrays (unpadded when tracks_config is None)."""
+    from sat_bundleadjust_tpu_torch.ops.sift import detect_sift_batch
+    from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
+
+    dev = resolve_device(device)
+    config = init_feature_tracks_config(tracks_config)
+    max_kp = None if tracks_config is None else config["FT_kp_max"]
+    if config["FT_sift_detection"] != "tpu":
+        raise NotImplementedError(
+            "FT_sift_detection={!r} is not ported yet; the port detects with its own "
+            "SIFT ('tpu')".format(config["FT_sift_detection"]))
+
+    n = len(geotiff_paths)
+    resolved = [None] * n
+    pending = []  # (i, image, mask) still to detect
+    for i, path in enumerate(geotiff_paths):
+        if not config["FT_reset"] and "in_dir" in config:
+            npy_in = os.path.join(config["in_dir"], "features/{}.npy".format(get_id(path)))
+            if os.path.exists(npy_in):
+                resolved[i] = np.load(npy_in)
+                continue
+        offset_i = None if offsets is None else offsets[i]
+        mask = None if mask_paths is None else np.load(mask_paths[i])
+        pending.append((i, loader.load_image(path, offset=offset_i, equalize=False), mask))
+
+    # same-shape images go through the pyramid together
+    by_shape = {}
+    for item in pending:
+        by_shape.setdefault(np.asarray(item[1]).shape, []).append(item)
+    thresh = float(config.get("FT_thresh_dog", 0.0133))
+    for group in by_shape.values():
+        feats_list = detect_sift_batch([np.asarray(im, dtype=np.float32) for _, im, _ in group],
+                                       thresh_dog=thresh, max_kp=max_kp, device=dev)
+        for (i, _, mask), feats in zip(group, feats_list):
+            if mask is not None and feats.shape[0] > 0:
+                feats = _apply_mask(feats, mask)
+            resolved[i] = _top_k_by_scale(feats, max_kp)
+
+    features = []
+    for i, path in enumerate(geotiff_paths):
+        features_i = resolved[i]
+        flush_print("{} keypoints in image {}".format(int(np.sum(~np.isnan(features_i[:, 0]))), i))
+        if config["FT_save"] and "out_dir" in config:
+            npy_out = os.path.join(config["out_dir"], "features/{}.npy".format(get_id(path)))
+            os.makedirs(os.path.dirname(npy_out), exist_ok=True)
+            np.save(npy_out, features_i)
+        features.append(features_i)
+    return features

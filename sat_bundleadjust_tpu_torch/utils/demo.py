@@ -1,9 +1,10 @@
 """Self-contained synthetic scenes (no data files needed).
 
-Counterpart of `sat_bundleadjust_tpu/utils/demo.py:19-151`: plausible RPC
-cameras built programmatically and ground-truth-controlled BA problems of
-any size. Random numbers come from numpy with the same calls in the same
-order, so a seed gives the JAX package's scene.
+Counterpart of `sat_bundleadjust_tpu/utils/demo.py`: plausible RPC cameras
+built programmatically, ground-truth-controlled BA problems of any size, and
+rendered multi-view imagery for the tracks front end. Random numbers come
+from numpy with the same calls in the same order, so a seed gives the JAX
+package's scene.
 """
 
 import numpy as np
@@ -107,6 +108,51 @@ def make_scene_arrays(n_cam=8, n_pts=2000, obs_per_pt=None, rot_scale=2e-5,
         "pts2d": obs,
         "weights": np.ones(len(pts_ind)),
     }
+
+
+def render_synthetic_images(n_cam=4, h=300, w=400, seed=0, alt=50.0, lon0=-72.71, lat0=11.02,
+                            span=0.035, n_tex=1024, tex_octaves=4, device=None):
+    """Render n_cam views of a shared smooth ground texture through
+    synthetic RPC cameras: pixel value = texture (n_tex^2, tex_octaves noise
+    octaves, seeded numpy) at the ground position that the pixel localizes
+    to at altitude alt. The localization runs on `device`.
+
+    Returns (images [n_cam (h, w) float32 arrays in [0, 1]], rpcs)."""
+    from scipy.ndimage import gaussian_filter
+
+    from sat_bundleadjust_tpu_torch.models.rpc import map_rpc, rpc_localization
+
+    dev = resolve_device(device)
+    rng = np.random.RandomState(seed)
+    tex = np.zeros((n_tex, n_tex))
+    for o in range(tex_octaves):
+        tex += gaussian_filter(rng.randn(n_tex, n_tex), sigma=2.0 ** (o + 1)) * 2.0 ** o
+    tex = (tex - tex.min()) / (tex.max() - tex.min())
+
+    cols = torch.arange(w, dtype=torch.float64, device=dev).repeat(h)
+    rows = torch.arange(h, dtype=torch.float64, device=dev).repeat_interleave(w)
+    alts = torch.full_like(cols, alt)
+    images, rpcs = [], []
+    for i in range(n_cam):
+        rpc = make_synthetic_rpc(
+            lon0=lon0, lat0=lat0,
+            view_dx=250.0 * np.cos(2 * np.pi * i / n_cam),
+            view_dy=250.0 * np.sin(2 * np.pi * i / n_cam),
+            img_halfsize=(w / 2.0, h / 2.0),
+        )
+        rpc_t = map_rpc(lambda f: torch.as_tensor(np.asarray(f, np.float64), device=dev), rpc)
+        lons, lats = rpc_localization(rpc_t, cols, rows, alts)
+        lons, lats = lons.cpu().numpy(), lats.cpu().numpy()
+        u = np.clip((lons - (lon0 - span)) / (2 * span) * (n_tex - 1), 0, n_tex - 1.001)
+        v = np.clip((lats - (lat0 - span)) / (2 * span) * (n_tex - 1), 0, n_tex - 1.001)
+        u0 = np.floor(u).astype(int)
+        v0 = np.floor(v).astype(int)
+        fu, fv = u - u0, v - v0
+        vals = ((1 - fv) * ((1 - fu) * tex[v0, u0] + fu * tex[v0, u0 + 1])
+                + fv * ((1 - fu) * tex[v0 + 1, u0] + fu * tex[v0 + 1, u0 + 1]))
+        images.append(vals.reshape(h, w).astype(np.float32))
+        rpcs.append(rpc)
+    return images, rpcs
 
 
 def scene_to_baparams(scene, noise_pts=1.0, verbose=False, dense_c=False):

@@ -10,6 +10,7 @@ import torch
 
 from sat_bundleadjust_tpu_torch.ba import solver as tsolver
 from sat_bundleadjust_tpu_torch.ops import lm as tlm
+from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
 from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
 from sat_bundleadjust_tpu_torch.utils import demo
 
@@ -53,3 +54,72 @@ def test_schur_wz_kernel_matches_plain(cuda, n_cam, n_pts):
     ref = smv.schur_wz_plain(x, *args)
     assert torch.equal(wz1, wz2)
     assert float((wz1 - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+
+
+def _nn2_operands(device, B, n1, n2, seed=0):
+    """Integer descriptors 0..255 (exact correspondences, tied columns),
+    epipolar lines and points, invalid rows/columns, per-pair thresholds
+    (off, 8 px, 20 px, ...) and, in the last pair, no valid column."""
+    g = torch.Generator().manual_seed(seed)
+    d_i = torch.randint(0, 256, (B, n1, 128), generator=g).float()
+    d_j = torch.randint(0, 256, (B, n2, 128), generator=g).float()
+    k = min(n1, n2) // 3
+    d_j[:, :k] = d_i[:, :k]
+    d_j[:, k:2 * k] = d_j[:, :k]
+    li = torch.cat([torch.randn(B, n1, 2, generator=g),
+                    -300.0 * torch.rand(B, n1, 1, generator=g)], 2)
+    hj = torch.cat([400.0 * torch.rand(B, n2, 2, generator=g), torch.ones(B, n2, 1)], 2)
+    vi = (torch.rand(B, n1, generator=g) > 0.05).float()
+    vj = (torch.rand(B, n2, generator=g) > 0.1).float()
+    vj[-1] = 0.0
+    thr = torch.tensor([1e9, 8.0, 20.0] * B)[:B]
+    return [t.to(device).contiguous() for t in (d_i, d_j, li, hj, vi, vj, thr)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n1,n2", [(3, 300, 700), (4, 1337, 2049)])
+def test_nn2_kernels_match_plain(cuda, B, n1, n2):
+    """Each 2-NN entry point against the plain version on the same card
+    tensors, at a small and a ragged size (N1, N2 not multiples of the
+    kernel's tiles): bit-identical on integer descriptors, two launches
+    give the same bits, and one launch per call is counted."""
+    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(cuda, B, n1, n2)
+    i8_i, i8_j = (d_i - 128).to(torch.int8), (d_j - 128).to(torch.int8)
+    ref = nm.nn2_plain(i8_i, i8_j, li, hj, vi, vj, thr)
+    before = (nm.nn2_batched_i8.launches, nm.nn2_batched.launches, nm.nn2_single.launches)
+    a = nm.nn2_batched_i8(i8_i, i8_j, li, hj, vi, vj, thr)
+    b = nm.nn2_batched_i8(i8_i, i8_j, li, hj, vi, vj, thr)
+    f = nm.nn2_batched(d_i, d_j, li, hj, vi, vj, thr)
+    s = nm.nn2_single(d_i[0], d_j[0], li[0], hj[0], vi[0], vj[0], float(thr[0]))
+    torch.cuda.synchronize()
+    assert (nm.nn2_batched_i8.launches, nm.nn2_batched.launches, nm.nn2_single.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert torch.equal(a, ref) and torch.equal(a, b) and torch.equal(f, ref)
+    assert torch.equal(torch.stack([s[0], s[1], s[2].float()]), ref[0])
+    assert bool((ref[-1, 0] == nm.BIG).all()) and bool((ref[-1, 2] == 0).all())
+    assert int((ref[:, 0] == ref[:, 1]).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_nn2_f32_kernel_on_non_integer_descriptors(cuda):
+    """The f32 kernel on descriptors with fractional parts. A distance is
+    sq_i + sq_j - 2 cross, a difference of terms up to
+    S = max(sq_i) + max(sq_j) (~1.7e7 here, float32 ulp 1-2), and the kernel
+    sums the 128 products and squares in another order than the plain
+    version's cuBLAS product and reductions: distances agree to 16 ulps of S
+    (measured: 2.0 against S ulp 2); the argmin may differ only on rows
+    whose two nearest columns lie within twice that tolerance (measured: 2
+    of 1500 rows)."""
+    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(cuda, 3, 500, 900, seed=1)
+    g = torch.Generator(cuda).manual_seed(2)
+    d_i = (d_i + torch.rand(d_i.shape, generator=g, device=cuda)).contiguous()
+    d_j = (d_j + torch.rand(d_j.shape, generator=g, device=cuda)).contiguous()
+    got = nm.nn2_batched(d_i, d_j, li, hj, vi, vj, thr)
+    ref = nm.nn2_plain(d_i, d_j, li, hj, vi, vj, thr)
+    torch.cuda.synchronize()
+    S = float((d_i * d_i).sum(-1).max() + (d_j * d_j).sum(-1).max())
+    tol = 16 * torch.finfo(torch.float32).eps * S
+    assert float((got[:, :2] - ref[:, :2]).abs().max()) <= tol
+    moved = got[:, 2] != ref[:, 2]
+    assert bool(((ref[:, 1] - ref[:, 0])[moved] <= 2 * tol).all())
+    assert float(moved.float().mean()) < 0.01

@@ -1,0 +1,331 @@
+"""Parity of the port's 2-NN matching, its wrappers and RANSAC with the JAX
+package (tests/test_pallas_match.py and tests/test_sift_match.py are the JAX
+side's own tests of the same functions).
+
+The JAX Pallas kernels run in interpret mode on the CPU, as the JAX
+package's tests run them. The port's wrappers take their plain PyTorch
+versions here, because the tensors lie on the CPU; the CUDA kernels are
+held against those plain versions on the card (tests/test_torch_cuda.py,
+chip_smoke.py).
+
+Tolerances: none for the 2-NN. On integer descriptors every value after
+the cross term is an integer below 2^24, exact in float32, and the gate is
+evaluated elementwise in the kernels' order, so the port must give the same
+bits as JAX (Queue 2 of ROADMAP.md).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from sat_bundleadjust_tpu.ops import match as jmatch
+from sat_bundleadjust_tpu.ops import ransac as jransac
+from sat_bundleadjust_tpu.ops.pallas_match import (
+    pallas_2nn, pallas_2nn_batched, pallas_2nn_batched_i8,
+)
+from sat_bundleadjust_tpu.parallel.feature_shard import packed_2nn_lax
+
+from sat_bundleadjust_tpu_torch.ops import match as tmatch
+from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
+from sat_bundleadjust_tpu_torch.ops import ransac as transac
+
+torch.set_num_threads(1)
+
+
+def _t(a):
+    return torch.as_tensor(np.ascontiguousarray(a))
+
+
+def _integer_problem(seed=4, B=3, n1=300, n2=700):
+    """Integer descriptors 0..255 with exact correspondences, exact ties
+    (duplicated columns), invalid rows and columns, a pair with no valid
+    column, and per-pair gates: off (1e9), 8 px, 20 px."""
+    rng = np.random.RandomState(seed)
+    d_i = rng.randint(0, 256, (B, n1, 128)).astype(np.float32)
+    d_j = rng.randint(0, 256, (B, n2, 128)).astype(np.float32)
+    d_j[:, :60] = d_i[:, :60]
+    d_j[:, 100:110] = d_j[:, 90:100]  # ties between two columns
+    d_i[:, 200:205] = d_j[:, 90:95]  # rows whose nearest columns tie
+    li = np.concatenate([rng.randn(B, n1, 2), -300.0 * rng.rand(B, n1, 1)], 2).astype(np.float32)
+    hj = np.concatenate([rng.rand(B, n2, 2) * 400, np.ones((B, n2, 1))], 2).astype(np.float32)
+    vi = np.ones((B, n1), np.float32)
+    vj = np.ones((B, n2), np.float32)
+    vi[:, -5:] = 0.0
+    vj[0] = rng.rand(n2) > 0.2
+    vj[2] = 0.0  # nothing valid in pair 2
+    thr = np.array([1e9, 8.0, 20.0], np.float32)
+    return d_i, d_j, li, hj, vi, vj, thr
+
+
+@pytest.fixture(scope="module")
+def integer_problem():
+    return _integer_problem()
+
+
+@pytest.fixture(scope="module")
+def jax_i8_packed(integer_problem):
+    d_i, d_j, li, hj, vi, vj, thr = integer_problem
+    return np.asarray(pallas_2nn_batched_i8(
+        jnp.asarray((d_i - 128).astype(np.int8)), jnp.asarray((d_j - 128).astype(np.int8)),
+        jnp.asarray(li), jnp.asarray(hj), jnp.asarray(vi), jnp.asarray(vj), jnp.asarray(thr),
+        interpret=True))
+
+
+@pytest.mark.parametrize("reference", ["pallas_2nn_batched_i8", "pallas_2nn_batched",
+                                       "packed_2nn_lax"])
+@pytest.mark.parametrize("entry", ["nn2_batched_i8", "nn2_batched"])
+def test_2nn_bit_identical_to_jax(integer_problem, jax_i8_packed, reference, entry):
+    """Both batched entry points against each JAX matcher: the int8 and f32
+    Pallas kernels in interpret mode and the lax twin of the mesh path.
+    Bit-identical, gate on and off, with ties and with a pair that has no
+    valid column."""
+    d_i, d_j, li, hj, vi, vj, thr = integer_problem
+    jops = [jnp.asarray(a) for a in (li, hj, vi, vj, thr)]
+    if reference == "pallas_2nn_batched_i8":
+        want = jax_i8_packed
+    elif reference == "pallas_2nn_batched":
+        want = np.asarray(pallas_2nn_batched(jnp.asarray(d_i), jnp.asarray(d_j), *jops,
+                                             interpret=True))
+    else:
+        want = np.asarray(packed_2nn_lax(jnp.asarray(d_i), jnp.asarray(d_j), *jops))
+    tops = [_t(a) for a in (li, hj, vi, vj, thr)]
+    if entry == "nn2_batched_i8":
+        got = nm.nn2_batched_i8(_t((d_i - 128).astype(np.int8)), _t((d_j - 128).astype(np.int8)),
+                                *tops)
+    else:
+        got = nm.nn2_batched(_t(d_i), _t(d_j), *tops)
+    got = got.numpy()
+    assert got.shape == want.shape == (3, 3, d_i.shape[1])
+    np.testing.assert_array_equal(got, want)
+    # the problem exercises what it claims to
+    assert (want[:, 0] == want[:, 1]).sum() > 0  # ties: d2 == d1
+    assert np.all(want[2, 0] == nm.BIG) and np.all(want[2, 2] == 0)  # nothing valid
+
+
+@pytest.mark.parametrize("b", [0, 1, 2])
+def test_single_pair_bit_identical_to_jax(integer_problem, jax_i8_packed, b):
+    """nn2_single (the f32 entry point with B = 1 and a scalar threshold)
+    against JAX pallas_2nn in interpret mode, and against the batched
+    result's row b: bit-identical."""
+    d_i, d_j, li, hj, vi, vj, thr = integer_problem
+    jd1, jd2, jidx = pallas_2nn(jnp.asarray(d_i[b]), jnp.asarray(d_j[b]), jnp.asarray(li[b]),
+                                jnp.asarray(hj[b]), jnp.asarray(vi[b]), jnp.asarray(vj[b]),
+                                float(thr[b]), interpret=True)
+    d1, d2, idx = nm.nn2_single(_t(d_i[b]), _t(d_j[b]), _t(li[b]), _t(hj[b]), _t(vi[b]),
+                                _t(vj[b]), float(thr[b]))
+    assert idx.dtype == torch.int32
+    np.testing.assert_array_equal(d1.numpy(), np.asarray(jd1))
+    np.testing.assert_array_equal(d2.numpy(), np.asarray(jd2))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(
+        np.stack([d1.numpy(), d2.numpy(), idx.numpy().astype(np.float32)]), jax_i8_packed[b])
+
+
+def _column_scan(packed_in):
+    """The CUDA kernel's algorithm, step for step in numpy: each row scans
+    its columns in increasing order; a strictly smaller d moves (d1, idx) to
+    (d, j) and d1 to d2, any other d lowers d2 to min(d2, d)."""
+    d, = packed_in
+    n1, n2 = d.shape
+    out = np.empty((3, n1), np.float32)
+    for i in range(n1):
+        d1 = d2 = np.float32(nm.BIG)
+        idx = 0
+        for j in range(n2):
+            if d[i, j] < d1:
+                d1, d2, idx = d[i, j], d1, j
+            elif d[i, j] < d2:
+                d2 = d[i, j]
+        out[:, i] = d1, d2, idx
+    return out
+
+
+def test_column_scan_tie_rule_equals_tile_merge():
+    """The kernel scans columns in order with a strict '<'; the TPU kernel
+    takes a per-tile argmin (lowest column of the minimum) and merges tiles
+    keeping the earlier tile on equality. Descriptors drawn from {0, 1} make
+    ties the rule: the scan must equal the plain version (the reference the
+    kernel is held against) and JAX's tiled kernel bit for bit, including
+    rows with nothing valid."""
+    rng = np.random.RandomState(11)
+    n1, n2 = 40, 1100  # three 512-column tiles of the TPU kernel
+    d_i = rng.randint(0, 2, (1, n1, 128)).astype(np.float32)
+    d_j = rng.randint(0, 2, (1, n2, 128)).astype(np.float32)
+    d_j[0, 600:1100] = d_j[0, 0:500]  # equal minima in different tiles
+    li = np.tile(np.array([1.0, 0.0, 0.0], np.float32), (1, n1, 1))
+    hj = np.concatenate([rng.rand(1, n2, 2) * 400, np.ones((1, n2, 1))], 2).astype(np.float32)
+    vi = np.ones((1, n1), np.float32)
+    vi[0, :3] = 0.0
+    vj = (rng.rand(1, n2) > 0.1).astype(np.float32)
+    thr = np.array([1e9], np.float32)
+    plain = nm.nn2_plain(_t((d_i - 128).astype(np.int8)), _t((d_j - 128).astype(np.int8)),
+                         _t(li), _t(hj), _t(vi), _t(vj), _t(thr)).numpy()[0]
+    dist = ((d_i[0, :, None, :] - d_j[0, None, :, :]) ** 2).sum(-1).astype(np.float32)
+    dist = np.where((vi[0, :, None] > 0) & (vj[0, None, :] > 0), dist, np.float32(nm.BIG))
+    scan = _column_scan((dist,))
+    jax_out = np.asarray(pallas_2nn_batched_i8(
+        jnp.asarray((d_i - 128).astype(np.int8)), jnp.asarray((d_j - 128).astype(np.int8)),
+        jnp.asarray(li), jnp.asarray(hj), jnp.asarray(vi), jnp.asarray(vj), jnp.asarray(thr),
+        interpret=True))[0]
+    assert (scan[0] == scan[1]).mean() > 0.5  # ties are the common case here
+    np.testing.assert_array_equal(scan, plain)
+    np.testing.assert_array_equal(scan, jax_out)
+
+
+def test_gate_is_elementwise_and_one_sided():
+    """The plain gate is num^2 <= thr^2 (l0^2 + l1^2) with num evaluated as
+    ((l0*h0) + (l1*h1)) + (l2*h2) in float32 (no fused multiply-add), the
+    order the CUDA kernel uses with round-to-nearest intrinsics: every
+    reported neighbour satisfies the gate computed that way in numpy."""
+    d_i, d_j, li, hj, vi, vj, thr = _integer_problem(seed=5)
+    out = nm.nn2_plain(_t(d_i), _t(d_j), _t(li), _t(hj), _t(vi), _t(vj), _t(thr)).numpy()
+    for b in (1, 2):
+        found = out[b, 0] < nm.BIG
+        j = out[b, 2, found].astype(int)
+        l_, h_ = li[b, found], hj[b, j]
+        num = (l_[:, 0] * h_[:, 0] + l_[:, 1] * h_[:, 1]) + l_[:, 2] * h_[:, 2]
+        rhs = (thr[b] * thr[b]) * (l_[:, 0] * l_[:, 0] + l_[:, 1] * l_[:, 1])
+        assert np.all(num * num <= rhs)
+    assert (out[1, 0] < nm.BIG).sum() > 10
+
+
+def test_wrappers_check_their_operands():
+    d_i, d_j, li, hj, vi, vj, thr = _integer_problem()
+    ops = [_t(a) for a in (li, hj, vi, vj, thr)]
+    with pytest.raises(ValueError, match="must be torch.int8"):
+        nm.nn2_batched_i8(_t(d_i), _t(d_j), *ops)
+    with pytest.raises(ValueError, match="shape"):
+        nm.nn2_batched(_t(d_i), _t(d_j[:, :, :64].copy()), *ops)
+    with pytest.raises(ValueError, match="contiguous"):
+        nm.nn2_batched(_t(d_i), _t(d_j), _t(li).transpose(1, 2).contiguous().transpose(1, 2),
+                       *ops[1:])
+
+
+def _frames(seed=3):
+    rng = np.random.RandomState(seed)
+    frames = []
+    for k in (500, 650, 380):
+        f = np.zeros((k, 132), np.float32)
+        f[:, :2] = rng.rand(k, 2) * 400
+        f[:, 2] = 1.0 + rng.rand(k)
+        f[:, 4:] = rng.randint(0, 256, size=(k, 128)).astype(np.float32)
+        frames.append(f)
+    frames[1][:200, 4:] = frames[0][:200, 4:]
+    frames[2][:150, 4:] = frames[1][100:250, 4:]
+    return frames
+
+
+def test_match_pairs_2nn_staged_matches_jax():
+    """The staged matcher (frames staged once, pair operands gathered on the
+    device, int8 2-NN) against JAX's with interpret=True, as
+    tests/test_pallas_match.py::test_match_pairs_2nn_staged_matches_host_packed
+    sets it up: identical (nn, accepted) per pair."""
+    frames = _frames()
+    pair_frames = [(0, 1), (1, 2), (0, 2)]
+    pair_idx = [(np.arange(0, 450), np.arange(0, 600)),
+                (np.arange(50, 640), np.arange(0, 380)),
+                (np.arange(0, 500), np.arange(10, 370))]
+    Fs = [None,
+          np.array([[0.0, 1e-4, -0.02], [-1e-4, 0.0, 0.03], [0.02, -0.03, 1.0]], np.float32),
+          None]
+    want = jmatch.match_pairs_2nn_staged(jmatch.stage_frames_for_matching(frames), pair_frames,
+                                         pair_idx, Fs, rel_thr=0.8, interpret=True)
+    staged = tmatch.stage_frames_for_matching(frames, device="cpu")
+    assert staged["desc"].dtype == torch.int8 and staged["n_f"] == 1024
+    got = tmatch.match_pairs_2nn_staged(staged, pair_frames, pair_idx, Fs, rel_thr=0.8)
+    for (nn_g, acc_g), (nn_w, acc_w) in zip(got, want):
+        np.testing.assert_array_equal(acc_g, acc_w)
+        np.testing.assert_array_equal(nn_g, nn_w)
+    assert sum(int(a.sum()) for _, a in got) > 300
+
+
+def test_host_packing_matches_jax():
+    """pack_pairs, int8_packable and accept_from_packed give JAX's arrays."""
+    frames = _frames(seed=6)
+    feats = [(frames[0][:300], frames[1][:400]), (frames[1][100:], frames[2])]
+    Fs = [np.eye(3) * 1e-3, None]
+    pj, pt = jmatch.pack_pairs(feats, Fs), tmatch.pack_pairs(feats, Fs)
+    for k in pj:
+        np.testing.assert_array_equal(pt[k], pj[k])
+    assert tmatch.int8_packable(pt["di"], pt["dj"]) == jmatch.int8_packable(pj["di"], pj["dj"])
+    assert not tmatch.int8_packable(pt["di"] + 0.5, pt["dj"])
+    packed = nm.nn2_plain(*[_t(pt[k]) for k in ("di", "dj", "li", "hj", "vi", "vj", "thr")])
+    got = tmatch.accept_from_packed(packed.numpy(), feats, pt["vi"], "relative", 0.8, 250.0)
+    want = jmatch.accept_from_packed(packed.numpy(), feats, pj["vi"], "relative", 0.8, 250.0)
+    for (a, b), (c, d) in zip(got, want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+
+
+def test_stage_frames_declines_non_integer_descriptors():
+    f = np.zeros((32, 132), np.float32)
+    f[:, 4:] = 0.5
+    assert tmatch.stage_frames_for_matching([f], device="cpu") is None
+
+
+@pytest.mark.parametrize("gate", [False, True])
+def test_cpu_matcher_matches_jax(gate):
+    """On the CPU both packages match through match_descriptors_2nn (the
+    symmetric epipolar gate); match_pairs_2nn_batched and match_pair
+    without RANSAC give JAX's matches exactly (integer descriptors make the
+    cross term exact; the gate's f32 epipolar distances agree)."""
+    frames = _frames(seed=8)
+    fi, fj = frames[0].astype(np.float64), frames[1].astype(np.float64)
+    fi[-7:] = np.nan
+    F = np.array([[0.0, 1e-4, -0.02], [-1e-4, 0.0, 0.03], [0.02, -0.03, 1.0]]) if gate else None
+    got = tmatch.match_pairs_2nn_batched([(fi, fj)], [F], rel_thr=0.8, device="cpu")
+    want = jmatch.match_pairs_2nn_batched([(fi, fj)], [F], rel_thr=0.8)
+    np.testing.assert_array_equal(got[0][1], want[0][1])
+    np.testing.assert_array_equal(got[0][0][got[0][1]], want[0][0][want[0][1]])
+    m_got, n_ratio, _ = tmatch.match_pair(fi, fj, F=F, rel_thr=0.8, ransac_thr=None, device="cpu")
+    m_want, n_ratio_j, _ = jmatch.match_pair(fi, fj, F=F, rel_thr=0.8, ransac_thr=None)
+    assert n_ratio == n_ratio_j > (5 if gate else 100)
+    np.testing.assert_array_equal(m_got, m_want)
+
+
+def _ransac_problem(seed, n=200, n_out=40):
+    rng = np.random.RandomState(seed)
+    pts1 = rng.uniform(0, 500, (n, 2))
+    pts2 = pts1 + np.stack([20.0 / rng.uniform(1, 2, n), np.zeros(n)], axis=1)
+    pts2 += 0.05 * rng.randn(n, 2)
+    out = rng.choice(n, n_out, replace=False)
+    pts2[out] += rng.uniform(-60, 60, (n_out, 2))
+    return pts1, pts2, out
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_ransac_fundamental_many_bit_identical(adaptive):
+    """The batched numpy RANSAC is copied with its RandomState stream, its
+    dtypes and its refit: same F and same inliers, bit for bit."""
+    probs = [_ransac_problem(s, n=150 + 40 * s) for s in range(4)]
+    probs.append((probs[0][0][:5], probs[0][1][:5], None))  # too few matches
+    p1 = [p[0] for p in probs]
+    p2 = [p[1] for p in probs]
+    got = transac.ransac_fundamental_many(p1, p2, thr=0.3, adaptive=adaptive)
+    want = jransac.ransac_fundamental_many(p1, p2, thr=0.3, adaptive=adaptive)
+    for (Fg, ig), (Fw, iw) in zip(got, want):
+        if Fw is None:
+            assert Fg is None and ig is None
+            continue
+        np.testing.assert_array_equal(Fg, Fw)
+        np.testing.assert_array_equal(ig, iw)
+
+
+def test_ransac_fundamental_single_pair_by_property():
+    """ransac_fundamental draws its minimal sets from numpy (the JAX
+    package's `_ransac_numpy` stream: bit-identical to it), where the JAX
+    path draws them with jax.random; against the JAX path the two are held
+    by property: both reject the injected outliers and keep the inliers."""
+    pts1, pts2, out = _ransac_problem(3)
+    F_t, inl_t = transac.ransac_fundamental(pts1, pts2, thr=0.3)
+    F_j, inl_j = jransac.ransac_fundamental(pts1, pts2, thr=0.3)
+    F_n, inl_n = jransac._ransac_numpy(pts1, pts2, np.ones(len(pts1), bool), 0.3, 0, 512, True)
+    np.testing.assert_array_equal(F_t, F_n)
+    np.testing.assert_array_equal(inl_t, inl_n)
+    true_in = np.setdiff1d(np.arange(len(pts1)), out)
+    for inl in (inl_t, inl_j):
+        assert np.sum(inl[out]) < 10
+        assert np.sum(inl[true_in]) > 140
+    assert np.mean(inl_t == inl_j) > 0.95
