@@ -9,11 +9,13 @@ no result line, where CUDA is not available. It
   1. prints the card, its power limit, the torch/CUDA versions, and asserts
      that TF32 is off;
   2. builds every CUDA kernel of the port from csrc/ (one nvcc per source,
-     all at once) and prints the build time;
-  3. holds each kernel against its plain PyTorch version (and the Schur
-     operator against its "aos" form) at the operands of the first LM step
-     of both problems below, checks that two launches give the same bits,
-     and times kernel and plain version with CUDA events;
+     all at once) and prints the build time and ptxas's registers, spills
+     and shared memory of the 2-NN kernels;
+  3. holds the Schur operator kernel against its plain PyTorch version and
+     its "aos" form at the operands of the first LM step of each problem
+     below (slices A, B and C), checks that two launches give the same
+     bits, and times it: device time from the profiler's kernel spans, wall
+     time per call of back-to-back calls, plain version with CUDA events;
   4. slice A: the pipeline's bundle-adjustment stage on the 50-camera demo
      problem (20 000 tracks, 80 000 observations, 2% of them moved by
      10-30 px): C-matrix problem, soft-L1 solve, outlier removal with
@@ -33,7 +35,8 @@ no result line, where CUDA is not available. It
      stage (triangulation, soft-L1, outlier removal, L2), which must bring
      the mean reprojection error from above 0.5 px to below 0.3 px;
   9. holds the three 2-NN entry points against their plain versions at the
-     operands of slice C's largest kernel chunk, and times them;
+     operands of slice C's largest kernel chunk, and times them (CUDA
+     events; achieved TOP/s and share of the bound);
  10. re-runs the detection of two of slice C's frames under torch.profiler
      (device busy time, idle share, top kernels);
  11. detects one 512x512 frame on the card and on the CPU: the keypoint
@@ -119,8 +122,14 @@ def schur_operands(p, solver, lam=1e-4):
 
 
 def check_schur_wz(tag, p, solver):
-    """Kernel vs plain version vs aos form, repeatability, times, bound."""
+    """Kernel vs plain version vs aos form, repeatability, times, bound.
+
+    Two times per call: wall_ms, back-to-back calls of the wrapper between
+    CUDA events (which measure the host where it enqueues more slowly than
+    the device runs), and device_ms, the summed profiler spans of the
+    kernel's two launches (point_pass, camera_pass) over the same calls."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from sat_bundleadjust_tpu_torch.ops import lm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
@@ -146,7 +155,15 @@ def check_schur_wz(tag, p, solver):
 
     K = p.n_obs
     reps = 200 if K < 200_000 else 50
-    ms = cuda_ms(lambda: smv.schur_wz(x, *args), reps)
+    wall_ms = cuda_ms(lambda: smv.schur_wz(x, *args), reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            smv.schur_wz(x, *args)
+        torch.cuda.synchronize()
+    _, by_name, _ = device_busy("schur_wz " + tag, prof)
+    device_ms = sum(v for k, v in by_name.items()
+                    if "point_pass" in k or "camera_pass" in k) / reps / 1e3
     plain_ms = cuda_ms(lambda: smv.schur_wz_plain(x, *args), max(reps // 10, 5))
     # least work: x, both What layouts at the K real observations, both
     # index tables, wz; K*P*3 f32 FMAs (track side) and K*P*3 f64 FMAs
@@ -159,13 +176,15 @@ def check_schur_wz(tag, p, solver):
                   "Tc": int(pts_ind_cam.shape[1])},
         "max_abs_err": err_plain, "rel_err_plain": err_plain / scale,
         "rel_err_aos": err_aos / scale, "bit_identical": same_bits,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "device_ms": device_ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
     }
     log("schur_wz [{}] M={M} N={N} K={K} P={P} Tp={Tp} Tc={Tc}: vs plain {:.2e}, vs aos {:.2e} "
-        "of max|wz|, bit-identical {}; kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms "
-        "({:.1f} MB)".format(tag, rec["rel_err_plain"], rec["rel_err_aos"], same_bits, ms,
-                             plain_ms, rec["bound_ms"], nbytes / 1e6, **rec["shape"]))
+        "of max|wz|, bit-identical {}; kernel device {:.4f} ms, wall {:.4f} ms (per call, {} "
+        "calls), plain {:.4f} ms, bound {:.4f} ms ({:.1f} MB)".format(
+            tag, rec["rel_err_plain"], rec["rel_err_aos"], same_bits, device_ms, wall_ms, reps,
+            plain_ms, rec["bound_ms"], nbytes / 1e6, **rec["shape"]))
     return rec
 
 
@@ -440,6 +459,8 @@ def slice_c(dev, counters):
     torch.cuda.synchronize()
     path_s = time.time() - t_path
     launches = {k.__name__: k.launches for k in counters}
+    # after the counters are read: these launches are comparisons
+    schur = check_schur_wz("slice C", p, BASolver(p, device=dev))
 
     log("slice C tracks: keypoints per frame {}; {} pairs to match, {} pairwise matches, "
         "{} tracks ({} observations)".format(kp, len(bundle["pairs_to_match"]),
@@ -466,7 +487,7 @@ def slice_c(dev, counters):
             "pairwise_matches": int(bundle["pairwise_matches"].shape[0]),
             "tracks": int(C.shape[1]), "timing": timing, "tracks_total_s": tracks_total_s,
             "path_s": path_s, "soft_l1": soft, "l2": l2, "removed": p.n_obs - p2.n_obs,
-            "launches": launches, "ft": ft, "images": images}
+            "launches": launches, "schur_wz": schur, "ft": ft, "images": images}
 
 
 def profile_detection(images, dev, n=2):
@@ -609,9 +630,30 @@ def check_nn2(ft, images, dev):
         bound_ms, bound_by, ops, nbytes = nn2_bound(m_i, m_j, desc_bytes, peak)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "ops": ops, "bytes": nbytes, "max_abs_err": err,
+                     "tops": ops / ms / 1e9, "bound_share": bound_ms / ms,
                      "shape": {"B": int(m_i.shape[0]), "n1": n1, "n2": n2}}
-        log("{}: kernel {:.4f} ms, plain {:.4f} ms, bound {:.4f} ms ({}; {:.3g} ops, "
-            "{:.1f} MB)".format(name, ms, plain_ms, bound_ms, bound_by, ops, nbytes / 1e6))
+        log("{}: kernel {:.4f} ms ({:.1f} TOP/s, {:.1%} of the bound), plain {:.4f} ms, bound "
+            "{:.4f} ms ({}; {:.3g} ops, {:.1f} MB)".format(
+                name, ms, ops / ms / 1e9, bound_ms / ms, plain_ms, bound_ms, bound_by, ops,
+                nbytes / 1e6))
+    return out
+
+
+def ptxas_summary(log_text):
+    """{kernel: "N registers, spills, shared memory"} from nvcc -Xptxas -v
+    output."""
+    import re
+
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Function properties for \S*?\d+(nn2_\w*?)E", line)
+        if m:
+            name = m.group(1)
+        elif name and "spill stores" in line:
+            out[name] = line.strip()
+        elif name and line.strip().startswith("ptxas info    : Used"):
+            out[name] = line.split(": Used", 1)[1].strip() + "; " + out.get(name, "")
+            name = None
     return out
 
 
@@ -669,19 +711,23 @@ def main():
     dev = torch.device("cuda")
 
     t0 = time.time()
-    _build.build()
+    build_logs = _build.build()
     build_s = time.time() - t0
     log("kernel build: {} in {:.2f} s (one nvcc per source, in parallel)".format(
         _build.sources(), build_s))
+    ptxas = ptxas_summary(build_logs.get("nn2_match", ""))
+    assert "nn2_i8_kernel" in ptxas, "no ptxas report of the int8 2-NN kernel"
+    for name, line in ptxas.items():
+        log("ptxas {}: {}".format(name, line))
 
     kernels = {"counters": [smv.schur_wz]}
     rec = {"card": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
-           "build_s": build_s}
+           "build_s": build_s, "ptxas": ptxas}
     rec["slice_a"] = slice_a(dev, kernels)
     rec["slice_b"] = slice_b(dev, kernels)
     rec["small_reference"] = small_reference(dev)
-    rec["schur_wz"] = {"A": kernels["A"], "B": kernels["B"]}
     c = slice_c(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz])
+    rec["schur_wz"] = {"A": kernels["A"], "B": kernels["B"], "C": c["schur_wz"]}
     images = c.pop("images")
     rec["nn2"] = check_nn2(c.pop("ft"), images, dev)
     rec["detection_profile"] = profile_detection(images, dev)
@@ -694,18 +740,20 @@ def main():
             json.dump(rec, f, indent=1, default=str)
 
     b = kernels["B"]
+    other = "; ".join(
+        "slice {}: ms (device) {:.5f}, wall_ms {:.5f}, plain_ms {:.5f}, bound_ms {:.5f}".format(
+            k, r["device_ms"], r["wall_ms"], r["plain_ms"], r["bound_ms"])
+        for k, r in (("A", kernels["A"]), ("C", c["schur_wz"])))
     entries = [{
         "name": "schur_wz", "route": "cuda",
         "source": "sat_bundleadjust_tpu_torch/csrc/schur_matvec.cu",
         "replaces": "sat_bundleadjust_tpu/ops/pallas_matvec.py:263",
         "launches": (rec["slice_a"]["launches"]["schur_wz"] + rec["slice_b"]["launches"]["schur_wz"]
                      + c["launches"]["schur_wz"]),
-        "max_abs_err": max(kernels["A"]["max_abs_err"], b["max_abs_err"]),
-        "ms": b["ms"], "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"],
-        "bound_by": b["bound_by"], "library_ms": None,
-        "at": "slice B shape (M=1000, K=800000); slice A: ms {:.5f}, plain_ms {:.5f}, "
-              "bound_ms {:.5f}".format(kernels["A"]["ms"], kernels["A"]["plain_ms"],
-                                       kernels["A"]["bound_ms"]),
+        "max_abs_err": max(r["max_abs_err"] for r in rec["schur_wz"].values()),
+        "ms": b["device_ms"], "wall_ms": b["wall_ms"], "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
+        "at": "slice B shape (M=1000, K=800000), ms = device time; " + other,
     }]
     replaces = {"nn2_batched_i8": "sat_bundleadjust_tpu/ops/pallas_match.py:240",
                 "nn2_batched": "sat_bundleadjust_tpu/ops/pallas_match.py:294",

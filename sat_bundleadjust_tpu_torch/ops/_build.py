@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` becomes `csrc/build/lib<name>.so` (a plain C
 interface, no PyTorch headers), compiled for sm_90a at first use. `build`
-starts one nvcc per source, all at once. The build directory is
-git-ignored; a library older than its source is rebuilt.
+starts one nvcc per source, all at once, and keeps each compiler log
+beside its library (`lib<name>.log`). The build directory is git-ignored; a
+library older than its source, or without its log, is rebuilt.
 """
 
 import ctypes
@@ -14,9 +15,10 @@ import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
+# -Xptxas -v: each kernel's registers, spills and shared memory in the log
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -43,35 +45,46 @@ def lib_path(name):
     return os.path.join(BUILD_DIR, "lib{}.so".format(name))
 
 
+def log_path(name):
+    return os.path.join(BUILD_DIR, "lib{}.log".format(name))
+
+
 def _fresh(name):
     lib = lib_path(name)
     src = os.path.join(CSRC, name + ".cu")
-    return os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(src)
+    return (os.path.exists(lib) and os.path.exists(log_path(name))
+            and os.path.getmtime(lib) >= os.path.getmtime(src))
 
 
 def build(names=None):
     """Compile the named sources (default: all), one nvcc each, in parallel.
 
-    Returns {name: compiler log}. Raises RuntimeError naming every source
-    that failed, with its compiler output."""
+    Returns {name: compiler log}, the kept log for a library that was
+    already fresh. Raises RuntimeError naming every source that failed, with
+    its compiler output."""
     names = sources() if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    procs, logs = {}, {}
     for name in names:
         if _fresh(name):
+            with open(log_path(name)) as f:
+                logs[name] = f.read()
             continue
         tmp = "{}.{}.tmp".format(lib_path(name), os.getpid())
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    logs, failed = {}, []
+    failed = []
     for name, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
         logs[name] = out
         if proc.returncode != 0:
             failed.append("{} (nvcc exit {}):\n{}".format(name, proc.returncode, out))
             continue
+        with open(tmp + ".log", "w") as f:
+            f.write(out)
+        os.replace(tmp + ".log", log_path(name))
         os.replace(tmp, lib_path(name))
     if failed:
         raise RuntimeError("CUDA build failed: " + "\n".join(failed))

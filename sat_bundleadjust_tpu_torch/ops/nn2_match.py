@@ -20,8 +20,9 @@ Three entry points, as in the JAX package:
 * `nn2_single`      <- `pallas_2nn`: one pair with a scalar threshold,
   three (N1,) results; the f32 kernel with B = 1.
 
-CUDA tensors launch the kernels of `csrc/nn2_match.cu` (or raise); CPU
-tensors run `nn2_plain`, the plain PyTorch version, which the kernels are
+CUDA tensors launch the kernels of `csrc/nn2_match.cu` (or raise): the int8
+entry point on the tensor cores (s8 `mma.sync`), the f32 ones on CUDA cores.
+CPU tensors run `nn2_plain`, the plain PyTorch version, which the kernels are
 held against. On integer descriptors every value after the cross term is an
 exact integer below 2^24 in f32, so kernels, plain version and JAX give the
 same bits. The gate is computed elementwise in the order
@@ -39,7 +40,8 @@ BIG = 1e12
 PLAIN_ROWS = 1024
 
 _SIGNATURES = {
-    "nn2_match_i8": (ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "nn2_match_i8": (ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "nn2_match_i8_scratch_bytes": (ctypes.c_long, [ctypes.c_int] * 2),
     "nn2_match_f32": (ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
 }
 
@@ -126,25 +128,41 @@ def _check(name, desc_dtype, desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, 
     return B, N1, N2
 
 
-def _launch(fn, args, B, N1, N2):
-    dev = args[0].device
-    out = torch.empty((B, 3, N1), dtype=torch.float32, device=dev)
-    lib = _build.load("nn2_match", _SIGNATURES)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, fn)(*[a.data_ptr() for a in args], out.data_ptr(), B, N1, N2, stream)
+def _lib():
+    return _build.load("nn2_match", _SIGNATURES)
+
+
+def _launch(fn, buffers, B, N1, N2):
+    """Call the C entry point `fn` on device buffers, in its order."""
+    stream = torch.cuda.current_stream(buffers[0].device).cuda_stream
+    err = getattr(_lib(), fn)(*[t.data_ptr() for t in buffers], B, N1, N2, stream)
     if err != 0:
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(fn, err))
+
+
+def _launch_f32(args, B, N1, N2):
+    out = torch.empty((B, 3, N1), dtype=torch.float32, device=args[0].device)
+    _launch("nn2_match_f32", (*args, out), B, N1, N2)
     return out
 
 
-def _batched(name, fn, desc_dtype, args):
+def _launch_i8(args, B, N1, N2):
+    dev = args[0].device
+    out = torch.empty((B, 3, N1), dtype=torch.float32, device=dev)
+    # the per-column records (sq_j, h_j) that the first of its two launches writes
+    scratch = torch.empty(_lib().nn2_match_i8_scratch_bytes(B, N2), dtype=torch.uint8, device=dev)
+    _launch("nn2_match_i8", (*args, out, scratch), B, N1, N2)
+    return out
+
+
+def _batched(name, launch, desc_dtype, args):
     B, N1, N2 = _check(name, desc_dtype, *args)
     dev = args[0].device
     if dev.type == "cpu":
         return nn2_plain(*args)
     if dev.type != "cuda":
         raise ValueError("{}: unsupported device {}".format(name, dev))
-    return _launch(fn, args, B, N1, N2)
+    return launch(args, B, N1, N2)
 
 
 def nn2_batched_i8(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
@@ -156,7 +174,7 @@ def nn2_batched_i8(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
     the gate). Returns the packed (B, 3, N1) f32 (d1, d2, idx). Each launch
     adds one to nn2_batched_i8.launches."""
     args = (desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr)
-    out = _batched("nn2_batched_i8", "nn2_match_i8", torch.int8, args)
+    out = _batched("nn2_batched_i8", _launch_i8, torch.int8, args)
     if out.device.type == "cuda" and out.numel():
         nn2_batched_i8.launches += 1
     return out
@@ -167,7 +185,7 @@ def nn2_batched(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
     are not integers in 0..255). Each launch adds one to
     nn2_batched.launches."""
     args = (desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr)
-    out = _batched("nn2_batched", "nn2_match_f32", torch.float32, args)
+    out = _batched("nn2_batched", _launch_f32, torch.float32, args)
     if out.device.type == "cuda" and out.numel():
         nn2_batched.launches += 1
     return out
@@ -182,7 +200,7 @@ def nn2_single(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
     thr = torch.tensor([float(epi_thr)], dtype=torch.float32, device=dev)
     args = (desc_i[None], desc_j[None], lines_i[None], hpts_j[None],
             valid_i[None], valid_j[None], thr)
-    out = _batched("nn2_single", "nn2_match_f32", torch.float32, args)
+    out = _batched("nn2_single", _launch_f32, torch.float32, args)
     if out.device.type == "cuda" and out.numel():
         nn2_single.launches += 1
     return out[0, 0], out[0, 1], out[0, 2].to(torch.int32)

@@ -56,13 +56,14 @@ def test_schur_wz_kernel_matches_plain(cuda, n_cam, n_pts):
     assert float((wz1 - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
 
 
-def _nn2_operands(device, B, n1, n2, seed=0):
-    """Integer descriptors 0..255 (exact correspondences, tied columns),
-    epipolar lines and points, invalid rows/columns, per-pair thresholds
-    (off, 8 px, 20 px, ...) and, in the last pair, no valid column."""
+def _nn2_operands(device, B, n1, n2, seed=0, hi=256, empty_last=True):
+    """Integer descriptors 0..hi-1 (exact correspondences, tied columns; with
+    hi = 2 ties are the common case), epipolar lines and points,
+    invalid rows/columns, per-pair thresholds (off, 8 px, 20 px, ...) and,
+    if empty_last, no valid column in the last pair."""
     g = torch.Generator().manual_seed(seed)
-    d_i = torch.randint(0, 256, (B, n1, 128), generator=g).float()
-    d_j = torch.randint(0, 256, (B, n2, 128), generator=g).float()
+    d_i = torch.randint(0, hi, (B, n1, 128), generator=g).float()
+    d_j = torch.randint(0, hi, (B, n2, 128), generator=g).float()
     k = min(n1, n2) // 3
     d_j[:, :k] = d_i[:, :k]
     d_j[:, k:2 * k] = d_j[:, :k]
@@ -71,19 +72,30 @@ def _nn2_operands(device, B, n1, n2, seed=0):
     hj = torch.cat([400.0 * torch.rand(B, n2, 2, generator=g), torch.ones(B, n2, 1)], 2)
     vi = (torch.rand(B, n1, generator=g) > 0.05).float()
     vj = (torch.rand(B, n2, generator=g) > 0.1).float()
-    vj[-1] = 0.0
+    if empty_last:
+        vj[-1] = 0.0
     thr = torch.tensor([1e9, 8.0, 20.0] * B)[:B]
     return [t.to(device).contiguous() for t in (d_i, d_j, li, hj, vi, vj, thr)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,n1,n2", [(3, 300, 700), (4, 1337, 2049)])
-def test_nn2_kernels_match_plain(cuda, B, n1, n2):
+@pytest.mark.parametrize("B,n1,n2,hi,empty_last", [
+    (3, 300, 700, 256, True),
+    (4, 1337, 2049, 256, True),
+    # the int8 kernel's tile edges: 128-row blocks of two m16 tiles per
+    # warp, n8 column blocks, 64-column stages
+    (1, 17, 5, 256, False),     # N2 below one n8 block
+    (1, 17, 65, 256, False),    # one 64-column stage + 1
+    (1, 17, 65, 2, False),      # the same with ties
+    (3, 300, 129, 2, True),     # gate on, ties, a pair with no valid column
+    (2, 513, 1000, 2, False),   # 513 rows cross four 128-row blocks
+])
+def test_nn2_kernels_match_plain(cuda, B, n1, n2, hi, empty_last):
     """Each 2-NN entry point against the plain version on the same card
-    tensors, at a small and a ragged size (N1, N2 not multiples of the
-    kernel's tiles): bit-identical on integer descriptors, two launches
+    tensors, at small, ragged and tile-edge sizes (N1, N2 not multiples of
+    the kernels' tiles): bit-identical on integer descriptors, two launches
     give the same bits, and one launch per call is counted."""
-    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(cuda, B, n1, n2)
+    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(cuda, B, n1, n2, hi=hi, empty_last=empty_last)
     i8_i, i8_j = (d_i - 128).to(torch.int8), (d_j - 128).to(torch.int8)
     ref = nm.nn2_plain(i8_i, i8_j, li, hj, vi, vj, thr)
     before = (nm.nn2_batched_i8.launches, nm.nn2_batched.launches, nm.nn2_single.launches)
@@ -96,7 +108,8 @@ def test_nn2_kernels_match_plain(cuda, B, n1, n2):
         before[0] + 2, before[1] + 1, before[2] + 1)
     assert torch.equal(a, ref) and torch.equal(a, b) and torch.equal(f, ref)
     assert torch.equal(torch.stack([s[0], s[1], s[2].float()]), ref[0])
-    assert bool((ref[-1, 0] == nm.BIG).all()) and bool((ref[-1, 2] == 0).all())
+    if empty_last:
+        assert bool((ref[-1, 0] == nm.BIG).all()) and bool((ref[-1, 2] == 0).all())
     assert int((ref[:, 0] == ref[:, 1]).sum()) > 0
 
 
