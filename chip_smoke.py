@@ -10,12 +10,15 @@ no result line, where CUDA is not available. It
      that TF32 is off;
   2. builds every CUDA kernel of the port from csrc/ (one nvcc per source,
      all at once) and prints the build time and ptxas's registers, spills
-     and shared memory of the 2-NN kernels;
+     and shared memory of the 2-NN kernels and of the Schur kernels at P = 3;
   3. holds the Schur operator kernel against its plain PyTorch version and
      its "aos" form at the operands of the first LM step of each problem
-     below (slices A, B and C), checks that two launches give the same
-     bits, and times it: device time from the profiler's kernel spans, wall
-     time per call of back-to-back calls, plain version with CUDA events;
+     below (slices A, B and C), checks that two calls of the function and
+     two of the operator bound once (as the CG loop binds it) give the same
+     bits, and times it: device time per call from the profiler's spans
+     (their count checked), wall time per call of back-to-back calls
+     through the bound operator and through the function, and the plain
+     version with CUDA events;
   4. slice A: the pipeline's bundle-adjustment stage on the 50-camera demo
      problem (20 000 tracks, 80 000 observations, 2% of them moved by
      10-30 px): C-matrix problem, soft-L1 solve, outlier removal with
@@ -121,15 +124,75 @@ def schur_operands(p, solver, lam=1e-4):
     return W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam
 
 
+def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2):
+    """Device time per call of a bound Schur operator from the profiler's
+    kernel spans (by kernel name): `warm` calls and a pause, then `reps`
+    timed ones. The profiler's device tracing can miss the first calls of
+    a window (2 spans of 406 in most runs on the H100, 279 of 406 in one),
+    so only the spans after the pause (the last gap of at least half of it
+    between two spans on the device's clock) are read, and each kernel of
+    KERNEL_NAMES must show exactly `reps` of them: a renamed kernel cannot
+    read as 0. A window that missed spans is taken again, up to `tries`
+    windows. Returns (ms per call, the union of the kernels' spans;
+    {kernel: ms per call}; spans seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
+
+    assert op.kernels_per_call == len(smv.KERNEL_NAMES), (label, op.kernels_per_call)
+    for attempt in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(warm):
+                op(x)
+            torch.cuda.synchronize()
+            time.sleep(pause_s)
+            for _ in range(reps):
+                op(x)
+            torch.cuda.synchronize()
+        _, _, kern = device_busy(label, prof)
+        ours = sorted((e for e in kern if any(n in e.name for n in smv.KERNEL_NAMES)),
+                      key=lambda e: e.time_range.start)
+        first, end = 0, float("inf")
+        for i, e in enumerate(ours):
+            if e.time_range.start - end >= pause_s * 0.5e6:
+                first = i
+            end = e.time_range.end if i == 0 else max(end, e.time_range.end)
+        ours = ours[first:]
+        seen = {n: sum(n in e.name for e in ours) for n in smv.KERNEL_NAMES}
+        if all(c == reps for c in seen.values()):
+            break
+        log("{}: window {} saw {} spans of the {} timed calls; taken again".format(
+            label, attempt + 1, seen, reps))
+    else:
+        raise AssertionError((label, seen, reps))
+    split, spans = {}, {}
+    for n in smv.KERNEL_NAMES:
+        mine = [e for e in ours if n in e.name]
+        spans[n] = len(mine)
+        span_us = sum(e.time_range.end - e.time_range.start for e in mine)
+        split[n] = span_us / max(len(mine), 1) / 1e3
+    # a dependent launch's span starts before its predecessor ends: per
+    # call, the union of the spans
+    busy_us, end = 0.0, float("-inf")
+    for e in ours:
+        busy_us += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    return busy_us / len(ours) * op.kernels_per_call / 1e3, split, spans
+
+
 def check_schur_wz(tag, p, solver):
     """Kernel vs plain version vs aos form, repeatability, times, bound.
 
-    Two times per call: wall_ms, back-to-back calls of the wrapper between
+    The operator the CG loop binds once per LM step (SchurOperator) and the
+    function (bind, then call) must give the same bits. Times per call:
+    device_ms, the union of the profiler spans of the bound operator's
+    kernels (and their mean span by kernel name); op_wall_ms and wall_ms,
+    back-to-back calls of the bound operator and of the function between
     CUDA events (which measure the host where it enqueues more slowly than
-    the device runs), and device_ms, the summed profiler spans of the
-    kernel's two launches (point_pass, camera_pass) over the same calls."""
+    the device runs)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sat_bundleadjust_tpu_torch.ops import lm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
@@ -139,32 +202,34 @@ def check_schur_wz(tag, p, solver):
     M, P = p.n_cam, p.n_params
     x = torch.randn(M, P, dtype=torch.float32, device=solver.device,
                     generator=torch.Generator(solver.device).manual_seed(0))
+    op = smv.SchurOperator(*args)
     wz1 = smv.schur_wz(x, *args)
     wz2 = smv.schur_wz(x, *args)
+    wz_op = op(x).clone()
     plain = smv.schur_wz_plain(x, *args)
     aos = lm.schur_wz_aos(x, *args)
     torch.cuda.synchronize()
     scale = float(plain.abs().max())
     err_plain = float((wz1 - plain).abs().max())
     err_aos = float((wz1 - aos).abs().max())
-    same_bits = bool(torch.equal(wz1, wz2))
+    same_bits = all(bool(torch.equal(w, wz1)) for w in (wz2, wz_op, op(x)))
     assert bool(torch.isfinite(wz1).all()), "schur_wz: non-finite output"
     assert err_plain <= 2e-6 * scale, (tag, err_plain / scale)
     assert err_aos <= 5e-5 * scale, (tag, err_aos / scale)
-    assert same_bits, "schur_wz: two launches differ"
+    assert same_bits, "schur_wz: two calls, or the bound operator and the function, differ"
 
     K = p.n_obs
     reps = 200 if K < 200_000 else 50
     wall_ms = cuda_ms(lambda: smv.schur_wz(x, *args), reps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            smv.schur_wz(x, *args)
-        torch.cuda.synchronize()
-    _, by_name, _ = device_busy("schur_wz " + tag, prof)
-    device_ms = sum(v for k, v in by_name.items()
-                    if "point_pass" in k or "camera_pass" in k) / reps / 1e3
+    op_wall_ms = cuda_ms(lambda: op(x), reps)
+    device_ms, split, spans = profile_schur("schur_wz " + tag, op, x, reps)
     plain_ms = cuda_ms(lambda: smv.schur_wz_plain(x, *args), max(reps // 10, 5))
+    # a yardstick, not a kernel of the port: PyTorch copying both What
+    # layouts (each byte read once and written once), the rate this card
+    # reaches on plain streams
+    copies = (torch.empty_like(W_pt), torch.empty_like(W_cm))
+    copy_ms = cuda_ms(lambda: (copies[0].copy_(W_pt), copies[1].copy_(W_cm)), reps)
+    copy_rate = 2 * 4 * (W_pt.numel() + W_cm.numel()) / copy_ms / 1e9
     # least work: x, both What layouts at the K real observations, both
     # index tables, wz; K*P*3 f32 FMAs (track side) and K*P*3 f64 FMAs
     # (camera side)
@@ -174,17 +239,24 @@ def check_schur_wz(tag, p, solver):
     rec = {
         "shape": {"M": M, "N": p.n_pts, "K": K, "P": P, "Tp": int(cam_ind_pt.shape[1]),
                   "Tc": int(pts_ind_cam.shape[1])},
+        "geometry": op.geometry, "kernels_per_call": op.kernels_per_call,
         "max_abs_err": err_plain, "rel_err_plain": err_plain / scale,
         "rel_err_aos": err_aos / scale, "bit_identical": same_bits,
-        "device_ms": device_ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+        "device_ms": device_ms, "split_ms": split, "spans": spans, "op_wall_ms": op_wall_ms,
+        "wall_ms": wall_ms, "plain_ms": plain_ms, "torch_copy_ms": copy_ms,
+        "torch_copy_tb_per_s": copy_rate,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations", "bytes": nbytes,
     }
-    log("schur_wz [{}] M={M} N={N} K={K} P={P} Tp={Tp} Tc={Tc}: vs plain {:.2e}, vs aos {:.2e} "
-        "of max|wz|, bit-identical {}; kernel device {:.4f} ms, wall {:.4f} ms (per call, {} "
-        "calls), plain {:.4f} ms, bound {:.4f} ms ({:.1f} MB)".format(
-            tag, rec["rel_err_plain"], rec["rel_err_aos"], same_bits, device_ms, wall_ms, reps,
-            plain_ms, rec["bound_ms"], nbytes / 1e6, **rec["shape"]))
+    log("schur_wz [{}] M={M} N={N} K={K} P={P} Tp={Tp} Tc={Tc}: geometry {}; vs plain {:.2e}, "
+        "vs aos {:.2e} of max|wz|, bit-identical {}; device {:.5f} ms per call "
+        "({} kernels, spans {}: {}), wall {:.5f} ms bound operator / {:.5f} ms function "
+        "({} calls), plain {:.4f} ms, bound {:.5f} ms ({:.1f} MB); torch copies both layouts "
+        "in {:.5f} ms ({:.2f} TB/s read + write)".format(
+            tag, op.geometry, rec["rel_err_plain"], rec["rel_err_aos"], same_bits,
+            device_ms, op.kernels_per_call, spans,
+            ", ".join("{} {:.5f}".format(k, v) for k, v in split.items()), op_wall_ms, wall_ms,
+            reps, plain_ms, rec["bound_ms"], nbytes / 1e6, copy_ms, copy_rate, **rec["shape"]))
     return rec
 
 
@@ -245,13 +317,15 @@ def profile_window(label, solver, ls, wall_per_it):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         *_, info = solver.solve(ls)
         torch.cuda.synchronize()
     busy_us, by_name, kern = device_busy(label, prof)
     total_us = sum(by_name.values())
-    schur_us = sum(v for k, v in by_name.items() if "point_pass" in k or "camera_pass" in k)
+    schur_us = sum(v for k, v in by_name.items() if any(n in k for n in smv.KERNEL_NAMES))
     its = max(info["iterations"], 1)
     busy_ms_per_it = busy_us / 1e3 / its
     rec = {"iterations": info["iterations"], "device_busy_ms_per_it": busy_ms_per_it,
@@ -646,9 +720,10 @@ def ptxas_summary(log_text):
 
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Function properties for \S*?\d+(nn2_\w*?)E", line)
+        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur)_[a-z0-9_]+?)(ILi(\d)E)?E",
+                      line)
         if m:
-            name = m.group(1)
+            name = m.group(1) + ("<{}>".format(m.group(3)) if m.group(3) else "")
         elif name and "spill stores" in line:
             out[name] = line.strip()
         elif name and line.strip().startswith("ptxas info    : Used"):
@@ -717,6 +792,10 @@ def main():
         _build.sources(), build_s))
     ptxas = ptxas_summary(build_logs.get("nn2_match", ""))
     assert "nn2_i8_kernel" in ptxas, "no ptxas report of the int8 2-NN kernel"
+    # the Schur kernels at the main path's P = 3
+    ptxas.update((k, v) for k, v in ptxas_summary(build_logs.get("schur_matvec", "")).items()
+                 if "<" not in k or k.endswith("<3>"))
+    assert "schur_cameras<3>" in ptxas, "no ptxas report of the Schur camera kernel"
     for name, line in ptxas.items():
         log("ptxas {}: {}".format(name, line))
 
@@ -741,8 +820,9 @@ def main():
 
     b = kernels["B"]
     other = "; ".join(
-        "slice {}: ms (device) {:.5f}, wall_ms {:.5f}, plain_ms {:.5f}, bound_ms {:.5f}".format(
-            k, r["device_ms"], r["wall_ms"], r["plain_ms"], r["bound_ms"])
+        "slice {}: ms (device) {:.5f}, op_wall_ms {:.5f}, wall_ms {:.5f}, plain_ms {:.5f}, "
+        "bound_ms {:.5f}".format(k, r["device_ms"], r["op_wall_ms"], r["wall_ms"], r["plain_ms"],
+                                 r["bound_ms"])
         for k, r in (("A", kernels["A"]), ("C", c["schur_wz"])))
     entries = [{
         "name": "schur_wz", "route": "cuda",
@@ -751,9 +831,11 @@ def main():
         "launches": (rec["slice_a"]["launches"]["schur_wz"] + rec["slice_b"]["launches"]["schur_wz"]
                      + c["launches"]["schur_wz"]),
         "max_abs_err": max(r["max_abs_err"] for r in rec["schur_wz"].values()),
-        "ms": b["device_ms"], "wall_ms": b["wall_ms"], "plain_ms": b["plain_ms"],
-        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"], "library_ms": None,
-        "at": "slice B shape (M=1000, K=800000), ms = device time; " + other,
+        "ms": b["device_ms"], "op_wall_ms": b["op_wall_ms"], "wall_ms": b["wall_ms"],
+        "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "library_ms": None,
+        "at": "slice B shape (M=1000, K=800000), ms = device time, op_wall_ms through the "
+              "bound operator; " + other,
     }]
     replaces = {"nn2_batched_i8": "sat_bundleadjust_tpu/ops/pallas_match.py:240",
                 "nn2_batched": "sat_bundleadjust_tpu/ops/pallas_match.py:294",

@@ -26,7 +26,7 @@ import torch
 
 from sat_bundleadjust_tpu_torch.ops import smallmat as sm
 from sat_bundleadjust_tpu_torch.ops.robust import loss_cost, loss_scale
-from sat_bundleadjust_tpu_torch.ops.schur_matvec import schur_wz, schur_wz_plain
+from sat_bundleadjust_tpu_torch.ops.schur_matvec import SchurOperator, schur_wz_plain
 
 MATVECS = ("auto", "plain", "aos")
 
@@ -339,10 +339,17 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
     dual_layout = prob.cam_ind_pt is not None and prob.pts_ind_cam is not None
     if dual_layout:
         W_pt, W_cm = fold_layouts(W, Vinv, prob)
-        op = {"aos": schur_wz_aos, "plain": schur_wz_plain}.get(matvec_impl, schur_wz)
+        if matvec_impl == "auto":
+            # bound once per LM step: the CG's calls launch the kernels only
+            op = SchurOperator(W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
 
-        def wz_of(x):
-            return op(x.contiguous(), W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
+            def wz_of(x):
+                return op(x.contiguous())
+        else:
+            op = {"aos": schur_wz_aos, "plain": schur_wz_plain}[matvec_impl]
+
+            def wz_of(x):
+                return op(x.contiguous(), W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
     else:
         pts_ind, cam_ind = prob.pts_ind, prob.cam_ind
 

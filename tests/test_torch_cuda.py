@@ -3,8 +3,14 @@ their plain versions. They import neither JAX nor the JAX package, and skip
 where torch.cuda.is_available() is false. On a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+`schur_kernel_order` (a numpy model of the Schur kernels' order of work)
+and `schur_operands` (seeded operands with ragged tracks and cameras) live
+here so that both these tests and the CPU tests of
+tests/test_torch_matvec.py use them.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +26,108 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+def schur_kernel_order(x, W_pt, cam_ind_pt, W_cm, pts_ind_cam):
+    """csrc/schur_matvec.cu's order of work in numpy, step for step, with
+    the geometry smv.plan derives from the shapes: what[n] as one f32 sum
+    per track in slot order (a product rounded, then the add: the kernel
+    fuses no multiply-add); for each camera G chunks of L slots, thread t
+    of 128 summing slots t, t+128, ... of its chunk in f64; a warp
+    xor-butterfly, the 4 warps in order, the G chunks in order; wz rounded
+    to f32. Returns wz (M, P) float32 and the geometry."""
+    x, W_pt, W_cm = (np.asarray(a, np.float32) for a in (x, W_pt, W_cm))
+    ci, pi = np.asarray(cam_ind_pt), np.asarray(pts_ind_cam)
+    M, P = x.shape
+    N, Tp = ci.shape
+    Tc = pi.shape[1]
+    geo = smv.plan(M, N, P, Tp, Tc)
+    what = np.zeros((N, 3), np.float32)
+    for t in range(Tp):
+        c = ci[:, t]
+        ok = (c >= 0) & (c < M)
+        xc = x[np.where(ok, c, 0)]
+        for p in range(P):
+            for j in range(3):
+                what[:, j] = np.where(ok, what[:, j] + W_pt[:, t, p, j] * xc[:, p], what[:, j])
+    G, L, B = geo["G"], geo["L"], smv.CAM_THREADS
+    h = what.astype(np.float64)
+    r = np.arange(G)[:, None]
+    acc = np.zeros((M, G, B, P))
+    for k in range(-(-L // B)):
+        s = r * L + np.arange(B)[None, :] + k * B  # (G, B) slot of each thread
+        sc = np.minimum(s, Tc - 1)
+        n = pi[:, sc]  # (M, G, B)
+        ok = (s < np.minimum((r + 1) * L, Tc))[None] & (n >= 0) & (n < N)
+        hn = h[np.where(ok, n, 0)]  # (M, G, B, 3)
+        w = W_cm[:, sc].astype(np.float64)  # (M, G, B, P, 3)
+        term = (w[..., 0] * hn[..., None, 0] + w[..., 1] * hn[..., None, 1]) \
+            + w[..., 2] * hn[..., None, 2]
+        acc = np.where(ok[..., None], acc + term, acc)
+    v = acc.reshape(M, G, B // 32, 32, P)
+    lane = np.arange(32)
+    for d in (16, 8, 4, 2, 1):
+        v = v + v[:, :, :, lane ^ d]
+    warps = v[:, :, :, 0]  # (M, G, B // 32, P)
+    chunk = warps[:, :, 0]
+    for w_ in range(1, B // 32):
+        chunk = chunk + warps[:, :, w_]
+    total = chunk[:, 0]
+    for g in range(1, G):
+        total = total + chunk[:, g]
+    return total.astype(np.float32), geo
+
+
+def schur_operands(M, N, tp_max, P, empty_camera=False, full=False, seed=0):
+    """Seeded operands in the layouts of ops/lm.fold_layouts: each track
+    seen by 1..tp_max distinct cameras (every camera if full), What random,
+    the two layouts padded with sentinels. empty_camera: the last camera
+    has no observation. Returns CPU tensors (W_pt, cam_ind_pt, W_cm,
+    pts_ind_cam)."""
+    rng = np.random.default_rng(seed)
+    m_used = M - 1 if empty_camera else M
+    cams = [np.arange(m_used) if full else
+            rng.choice(m_used, rng.integers(1, min(tp_max, m_used) + 1), replace=False)
+            for _ in range(N)]
+    pts_ind = np.repeat(np.arange(N), [len(c) for c in cams])
+    cam_ind = np.concatenate(cams)
+    K = len(cam_ind)
+    wh = rng.normal(size=(K, P, 3)).astype(np.float32)
+    Tp = max(len(c) for c in cams)
+    Tc = int(np.bincount(cam_ind, minlength=M).max())
+    cam_ind_pt = np.full((N, Tp), M, np.int32)
+    W_pt = np.zeros((N, Tp, P, 3), np.float32)
+    t_pt = np.arange(K) - np.repeat(np.cumsum([len(c) for c in cams]) - [len(c) for c in cams],
+                                    [len(c) for c in cams])
+    cam_ind_pt[pts_ind, t_pt] = cam_ind
+    W_pt[pts_ind, t_pt] = wh
+    order = np.argsort(cam_ind, kind="stable")
+    counts = np.bincount(cam_ind, minlength=M)
+    t_cm = np.arange(K) - np.repeat(np.cumsum(counts) - counts, counts)
+    pts_ind_cam = np.full((M, Tc), N, np.int32)
+    W_cm = np.zeros((M, Tc, P, 3), np.float32)
+    pts_ind_cam[cam_ind[order], t_cm] = pts_ind[order]
+    W_cm[cam_ind[order], t_cm] = wh[order]
+    return tuple(torch.from_numpy(a) for a in (W_pt, cam_ind_pt, W_cm, pts_ind_cam))
+
+
+# (M, N, tp_max, P, empty_camera, full): the card's edge shapes
+SCHUR_EDGE_CASES = {
+    # slice C's shape class: few cameras, every track in each, Tc long
+    "c_like": (10, 3000, 10, 3, False, True),
+    "empty_camera": (12, 900, 4, 3, True, False),
+    # Tc = 301: two chunks of 151 slots, the last one short
+    "ragged_chunk": (4, 301, 4, 3, False, True),
+    "p1": (20, 1500, 5, 1, False, False),
+    "p9": (30, 2000, 6, 9, False, False),
+    # long tracks: a point CTA's slab spans several shared-memory pieces
+    "long_tracks": (60, 400, 40, 9, False, True),
+    # long chunks: a camera CTA's chunk spans several pieces
+    "long_chunks": (2, 20000, 2, 9, False, True),
+    # many cameras, one chunk each: the camera CTA writes wz itself
+    "many_cameras": (1000, 3000, 4, 9, False, False),
+    "one_camera": (1, 500, 1, 3, False, True),
+}
 
 
 def _operands(device, n_cam, n_pts, lam=1e-4):
@@ -38,22 +146,37 @@ def _operands(device, n_cam, n_pts, lam=1e-4):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_cam,n_pts", [(16, 2000), (120, 6000)])
-def test_schur_wz_kernel_matches_plain(cuda, n_cam, n_pts):
+@pytest.mark.parametrize("case", ["demo-16-2000", "demo-120-6000", *SCHUR_EDGE_CASES])
+def test_schur_wz_kernel_matches_plain(cuda, case):
     """2e-6 of max|wz| against the plain version (f32 per-track sums in
-    another order, f64 camera sums on both), and two launches give the
-    same bits (no atomics)."""
-    args = _operands(cuda, n_cam, n_pts)
-    x = torch.randn(n_cam, 3, dtype=torch.float32, device=cuda,
+    another order, f64 camera sums on both); the bits of the numpy model of
+    the kernels' order of work; two calls of the function and two of the
+    bound operator give the same bits (a tree fixed by the shapes, no
+    atomics); one launch counted per call. The cases cover one chunk per
+    camera and clusters of 2 to 16, and slabs and chunks over several
+    shared-memory pieces."""
+    if case.startswith("demo"):
+        n_cam, n_pts = (int(v) for v in case.split("-")[1:])
+        args = _operands(cuda, n_cam, n_pts)
+    else:
+        args = tuple(t.to(cuda) for t in schur_operands(*SCHUR_EDGE_CASES[case]))
+    M, P = args[2].shape[0], args[2].shape[2]
+    x = torch.randn(M, P, dtype=torch.float32, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(0))
     before = smv.schur_wz.launches
     wz1 = smv.schur_wz(x, *args)
     wz2 = smv.schur_wz(x, *args)
+    op = smv.SchurOperator(*args)
+    wz_op = op(x).clone()
+    wz_op2 = op(x)
     torch.cuda.synchronize()
-    assert smv.schur_wz.launches == before + 2
+    assert smv.schur_wz.launches == before + 4 and op.kernels_per_call == 2
     ref = smv.schur_wz_plain(x, *args)
-    assert torch.equal(wz1, wz2)
+    assert torch.equal(wz1, wz2) and torch.equal(wz_op, wz1) and torch.equal(wz_op2, wz1)
     assert float((wz1 - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
+    model, geo = schur_kernel_order(*(t.cpu().numpy() for t in (x, *args)))
+    assert geo == op.geometry
+    np.testing.assert_array_equal(wz1.cpu().numpy(), model)
 
 
 def _nn2_operands(device, B, n1, n2, seed=0, hi=256, empty_last=True):

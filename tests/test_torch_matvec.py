@@ -11,6 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from test_torch_common import both_problems, jax_scene, t
+from test_torch_cuda import SCHUR_EDGE_CASES, schur_kernel_order, schur_operands
 
 from sat_bundleadjust_tpu.ba import solver as jsolver
 from sat_bundleadjust_tpu.ops import lm as jlm
@@ -50,14 +51,29 @@ def _plain(s, x):
                               s["tprob"].pts_ind_cam).numpy()
 
 
-@pytest.mark.parametrize("n_cam,n_pts,drop,block", [(37, 900, 300, 128), (70, 1200, 0, 128)])
-def test_plain_matches_jax_twin_and_pallas_interpret(n_cam, n_pts, drop, block):
+_SYSTEMS = [(37, 900, 300, 128), (70, 1200, 0, 128)]
+
+
+@pytest.mark.parametrize("impl,n_cam,n_pts,drop,block", [
+    *(pytest.param("plain", *c, id="-".join(map(str, c))) for c in _SYSTEMS),
+    *(pytest.param("kernel_order", *c, id="kernel_order-" + "-".join(map(str, c)))
+      for c in _SYSTEMS),
+])
+def test_plain_matches_jax_twin_and_pallas_interpret(impl, n_cam, n_pts, drop, block):
+    """The plain version, and the numpy model of the CUDA kernels' order of
+    work, against the JAX package's f64 twin and its Pallas kernel in
+    interpret mode on the same inputs."""
     s = _wz_system(n_cam, n_pts, drop=drop)
     x = np.random.default_rng(1).normal(size=(s["M"], s["P"])).astype(np.float32)
     Wh, c, meta = pmv.build_wh_operands(s["W"], s["Vinv"], s["jprob"], s["M"], block_pts=block)
     f64 = np.asarray(pmv.schur_wz_twin(jnp.asarray(x), Wh, c, meta, accum="f64"))
     pal = np.asarray(pmv.schur_wz(jnp.asarray(x), Wh, c, meta, interpret=True))
     wz = _plain(s, x)
+    if impl == "kernel_order":
+        plain = wz
+        wz, _ = schur_kernel_order(x, s["W_pt"].numpy(), s["tprob"].cam_ind_pt.numpy(),
+                                   s["W_cm"].numpy(), s["tprob"].pts_ind_cam.numpy())
+        assert np.abs(wz - plain).max() <= 2e-6 * np.abs(plain).max()
     assert wz.dtype == np.float32 and wz.shape == (s["M"], s["P"])
     scale = np.abs(f64).max()
     # the same f32 products and f64 camera sums; only the f32 per-track sum
@@ -115,6 +131,87 @@ def test_sentinel_slots_are_masked_not_gathered():
     W_cm[prob.pts_ind_cam == s["N"]] = 7.0
     got = smv.schur_wz_plain(t(x), W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam).numpy()
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("case", list(SCHUR_EDGE_CASES))
+def test_kernel_order_model_matches_plain_on_edge_shapes(case):
+    """The kernels' order of work on the shapes the card tests use (few
+    cameras with long Tc, a camera with no observation, a short last chunk,
+    P 1 and 9, slabs and chunks over several shared-memory pieces, one
+    camera): within 2e-6 of max|wz| of the plain version, a camera without
+    observations exactly 0, every slot of every camera in exactly one
+    chunk."""
+    args = schur_operands(*SCHUR_EDGE_CASES[case])
+    M, P = args[2].shape[0], args[2].shape[2]
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(M, P)).astype(np.float32))
+    ref = smv.schur_wz_plain(x, *args).numpy()
+    wz, geo = schur_kernel_order(x.numpy(), *(a.numpy() for a in args))
+    assert np.abs(wz - ref).max() <= 2e-6 * np.abs(ref).max()
+    if SCHUR_EDGE_CASES[case][4]:
+        assert np.all(wz[-1] == 0.0)
+    Tc = args[3].shape[1]
+    assert geo["G"] * geo["L"] >= Tc > (geo["G"] - 1) * geo["L"]
+
+
+@pytest.mark.parametrize("shape,expect", [
+    # slices A, B and C of chip_smoke.py (M, N, P, Tp, Tc)
+    ((50, 20000, 3, 4, 1700), {"T": 64, "G": 8, "L": 213}),
+    ((1000, 200000, 3, 4, 877), {"T": 64, "G": 1, "L": 877}),
+    ((10, 10929, 3, 10, 10929), {"T": 32, "G": 16, "L": 684}),
+    ((5000, 100, 3, 2, 40), {"T": 32, "G": 1, "L": 40}),
+    ((3, 10, 3, 2, 0), {"T": 32, "G": 1, "L": 0}),
+])
+def test_plan_depends_on_shapes_only(shape, expect):
+    """The camera tree's shape (G chunks of L slots) and the point slabs
+    come from the shapes alone: G a power of two, at most 16, the chunks
+    covering Tc."""
+    geo = smv.plan(*shape)
+    assert geo == expect
+    assert geo["G"] & (geo["G"] - 1) == 0 and 1 <= geo["G"] <= smv.MAX_CHUNKS
+
+
+def test_bound_operator_on_cpu_is_the_plain_version():
+    s = _wz_system(12, 300, drop=40)
+    prob = s["tprob"]
+    args = (s["W_pt"], prob.cam_ind_pt, s["W_cm"], prob.pts_ind_cam)
+    op = smv.SchurOperator(*args)
+    assert op.kernels_per_call == 0
+    before = smv.schur_wz.launches
+    for seed in range(3):
+        x = torch.randn(s["M"], s["P"], generator=torch.Generator().manual_seed(seed))
+        assert torch.equal(op(x), smv.schur_wz_plain(x, *args))
+        assert torch.equal(op(x), smv.schur_wz(x, *args))
+    assert smv.schur_wz.launches == before  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("W_pt_f64", "float32"), ("cam_ind_pt_i64", "int32"), ("W_cm_strided", "contiguous"),
+    ("pts_ind_cam_short", "shapes"), ("W_pt_wrong_P", "shapes"), ("p10", "outside"),
+    ("cam_ind_pt_flat", "shapes"),
+])
+def test_bound_operator_refuses_at_bind(fault, match):
+    """The operand faults schur_wz refuses raise when the operator is
+    bound, not at a call."""
+    s = _wz_system(12, 300)
+    prob = s["tprob"]
+    W_pt, ci, W_cm, pi = s["W_pt"], prob.cam_ind_pt, s["W_cm"], prob.pts_ind_cam
+    if fault == "W_pt_f64":
+        W_pt = W_pt.double()
+    elif fault == "cam_ind_pt_i64":
+        ci = ci.long()
+    elif fault == "W_cm_strided":
+        W_cm = W_cm.transpose(0, 1).contiguous().transpose(0, 1)
+    elif fault == "pts_ind_cam_short":
+        pi = pi[:, :-1].contiguous()
+    elif fault == "W_pt_wrong_P":
+        W_pt = W_pt[:, :, :2].contiguous()
+    elif fault == "p10":
+        W_pt = torch.zeros(W_pt.shape[:2] + (10, 3))
+        W_cm = torch.zeros(W_cm.shape[:2] + (10, 3))
+    else:
+        ci = ci.reshape(-1)
+    with pytest.raises(ValueError, match=match):
+        smv.SchurOperator(W_pt, ci, W_cm, pi)
 
 
 def test_coarse_inverse_drops_indefinite_operator():
