@@ -44,12 +44,22 @@ no result line, where CUDA is not available. It
      (device busy time, idle share, top kernels);
  11. detects one 512x512 frame on the card and on the CPU: the keypoint
      counts must agree within 1%;
+ 12. slice D: the command line interface (`cli.main([config, "--verbose"])`,
+     in process) on slice C's ten frames written to disk as .tif with
+     their biased RPCs as .rpc files, with the default config plus
+     FT_kp_max 40000, FT_save True and save_figures False: scene load,
+     footprints, tracks front end, triangulation, soft-L1, outliers, L2,
+     the batched RPC refit on the card and the files. It must write 10
+     .rpc_adj files whose re-read RPCs take the reprojection error of the
+     tracks from above 0.5 px to below 0.3 px; it prints the wall time of
+     each stage and the refit's fit error per camera;
 
 and ends with a JSON line per kernel ({"kernels": [...]}) and the result
 line {"ok": true, "device": {...}}. Kernel launch counters are set to 0
 just before each slice and read just after it: a kernel of the path that
 a slice did not launch fails the run, and so does a launch of the f32 2-NN
-kernels in slice C, whose SIFT descriptors must take the int8 kernel.
+kernels in slices C and D, whose SIFT descriptors must take the int8
+kernel.
 """
 
 import argparse
@@ -78,6 +88,8 @@ SLICE_C_TRACKS_CONFIG = {"FT_kp_max": 40000, "FT_sift_matching": "epipolar_based
                          "FT_save": False, "FT_reset": True}
 SLICE_C_REPROJ_BEFORE_MIN = 0.5
 SLICE_C_REPROJ_AFTER_MAX = 0.3
+# slice D: the CLI's defaults plus these keys, on slice C's frames
+SLICE_D_CONFIG = {"rpc_src": "txt", "FT_kp_max": 40000, "FT_save": True, "save_figures": False}
 
 
 def log(*args):
@@ -754,6 +766,94 @@ def sift_device_check(dev):
     return {"card": n_gpu, "cpu": n_cpu, "card_s": t1 - t0, "cpu_s": t2 - t1, "identical": same}
 
 
+def slice_d(dev, counters, images):
+    """The CLI in process on slice C's frames and biased RPCs written to
+    disk: stage walls, refit fit errors, kernel launches, and the
+    reprojection error of the tracks through the re-read .rpc_adj files."""
+    import glob
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from sat_bundleadjust_tpu_torch import cli
+    from sat_bundleadjust_tpu_torch.models.rpc import write_rpc_file
+
+    with tempfile.TemporaryDirectory(prefix="slice_d_") as root:
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir)
+        t0 = time.time()
+        for k, im in enumerate(images):
+            name = "20200413_1514{:02d}_view{}".format(10 + k, k)
+            Image.fromarray(np.asarray(im.geotiff_path)).save(os.path.join(img_dir, name + ".tif"))
+            write_rpc_file(im.rpc, os.path.join(img_dir, name + ".rpc"))
+        write_s = time.time() - t0
+        cfg = dict(SLICE_D_CONFIG, geotiff_dir=img_dir, rpc_dir=img_dir,
+                   output_dir=os.path.join(root, "out"))
+        cfg_path = os.path.join(root, "config.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        log("slice D: {} frames of {}x{} px written as .tif and their biased RPCs as .rpc in "
+            "{:.2f} s; route: cli.main([config, '--verbose']) with {}".format(
+                len(images), SLICE_C["h"], SLICE_C["w"], write_s, SLICE_D_CONFIG))
+
+        for k in counters:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        scene = cli.main([cfg_path, "--verbose"])
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        launches = {k.__name__: k.launches for k in counters}
+
+        pipe = scene.ba_pipeline
+        ba_dir = os.path.join(cfg["output_dir"], "ba_bruteforce")
+        adj = sorted(glob.glob(os.path.join(ba_dir, "rpcs_adj", "*.rpc_adj")))
+        caches = {d: len(os.listdir(os.path.join(ba_dir, "matches", d)))
+                  for d in ("features", "features_utm", "pairwise_matches")}
+        t0 = time.time()
+        err_before, err_after = scene.compute_reprojection_error_before_and_after_bundle_adjust()
+        reread_s = time.time() - t0
+        n_ply = sum(1 for _ in open(os.path.join(ba_dir, "pts3d_adj.ply"))) - 7
+
+    stages = dict(scene.timing)
+    stages.update(pipe.timing)
+    order = ["scene_load_s", "footprints_s", "cameras_s", "tracks_s", "triangulation_s",
+             "selection_s", "soft_l1_s", "outliers_s", "l2_s", "refit_s", "writes_s"]
+    matvecs = sum(r["matvecs"] for r in pipe.ba_rounds)
+    refit = pipe.refit_stats
+    log("slice D stage walls: " + "; ".join("{} {:.3f} s".format(k[:-2], stages[k]) for k in order)
+        + "; CLI total {:.3f} s".format(cli_s))
+    log("slice D tracks front end: " + "; ".join(
+        "{} {:.3f} s".format(k[:-2], v) for k, v in pipe.ft_timing.items()))
+    log("slice D: {} tracks, {} observations; LM rounds {}; mean reprojection {:.4f} -> "
+        "{:.4f} px (solver); refit: {} rounds, margins {}, fit error per camera max {} / "
+        "median {} px; kernel launches {} ({} matvecs); caches {}".format(
+            pipe.ba_params.n_pts, pipe.ba_params.n_obs,
+            [(r["iterations"], r["matvecs"]) for r in pipe.ba_rounds],
+            float(np.mean(pipe.init_e)), float(np.mean(pipe.ba_e)), refit["rounds"],
+            refit["margins"], ["{:.3g}".format(e) for e in refit["fit_error_max"]],
+            ["{:.3g}".format(e) for e in refit["fit_error_median"]], launches, matvecs, caches))
+    log("slice D re-read .rpc_adj: reprojection error of the tracks {:.4f} -> {:.4f} px "
+        "({:.2f} s)".format(err_before, err_after, reread_s))
+    assert len(adj) == len(images), adj
+    assert n_ply == pipe.ba_params.n_pts, n_ply
+    n = len(images)
+    assert caches == {"features": n, "features_utm": n, "pairwise_matches": n * (n - 1) // 2}, caches
+    assert launches["nn2_batched_i8"] > 0, launches
+    assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
+    assert launches["schur_wz"] == matvecs > 0, (launches, matvecs)
+    assert max(refit["fit_error_max"]) < 1e-3, refit
+    assert err_before > SLICE_C_REPROJ_BEFORE_MIN, err_before
+    assert err_after < SLICE_C_REPROJ_AFTER_MAX, err_after
+    return {"write_s": write_s, "cli_s": cli_s, "stages_s": {k: stages[k] for k in order},
+            "tracks_front_end_s": dict(pipe.ft_timing), "ba_rounds": pipe.ba_rounds,
+            "refit": refit, "launches": launches, "matvecs": matvecs, "tracks": pipe.ba_params.n_pts,
+            "reproj_before": err_before, "reproj_after": err_after, "rpc_adj_files": len(adj)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full record as JSON to this file")
@@ -812,6 +912,8 @@ def main():
     rec["detection_profile"] = profile_detection(images, dev)
     rec["slice_c"] = c
     rec["sift_device_check"] = sift_device_check(dev)
+    rec["slice_d"] = slice_d(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz],
+                             images)
     rec["total_s"] = time.time() - t_start
     log("total {:.1f} s".format(rec["total_s"]))
     if args.out:
@@ -829,7 +931,7 @@ def main():
         "source": "sat_bundleadjust_tpu_torch/csrc/schur_matvec.cu",
         "replaces": "sat_bundleadjust_tpu/ops/pallas_matvec.py:263",
         "launches": (rec["slice_a"]["launches"]["schur_wz"] + rec["slice_b"]["launches"]["schur_wz"]
-                     + c["launches"]["schur_wz"]),
+                     + c["launches"]["schur_wz"] + rec["slice_d"]["launches"]["schur_wz"]),
         "max_abs_err": max(r["max_abs_err"] for r in rec["schur_wz"].values()),
         "ms": b["device_ms"], "op_wall_ms": b["op_wall_ms"], "wall_ms": b["wall_ms"],
         "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
@@ -844,7 +946,8 @@ def main():
         k = rec["nn2"][name]
         entries.append({
             "name": name, "route": "cuda", "source": "sat_bundleadjust_tpu_torch/csrc/nn2_match.cu",
-            "replaces": where, "launches": c["launches"][name], "max_abs_err": k["max_abs_err"],
+            "replaces": where, "launches": c["launches"][name] + rec["slice_d"]["launches"][name],
+            "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
             "at": "slice C's largest staged chunk, B={B} n1={n1} n2={n2}".format(**k["shape"]),

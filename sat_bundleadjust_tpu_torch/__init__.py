@@ -1,8 +1,11 @@
-"""sat_bundleadjust_tpu_torch — the tracks front end and the bundle-adjustment
-stage in PyTorch + CUDA.
+"""sat_bundleadjust_tpu_torch — satellite bundle adjustment for RPC model
+refinement in PyTorch + CUDA.
 
 A port of the JAX package `sat_bundleadjust_tpu` to PyTorch on an NVIDIA
-Hopper card. It covers
+Hopper card. `main(config_path)` (or `python -m
+sat_bundleadjust_tpu_torch.cli config.json`) runs a scene config end to end
+(`timeseries.Scene`, `pipeline.BundleAdjustmentPipeline`) and writes the JAX
+package's outputs: rpcs_adj/*.rpc_adj, pts3d_adj.ply, cam_params/. It covers
 * the tracks front end: SIFT detection (`ops.sift`), pair selection, the
   epipolar F init, 2-NN matching, RANSAC and the union-find tracks
   (`tracks.pipeline.FeatureTracksPipeline`); the 2-NN matchers are
@@ -12,7 +15,9 @@ Hopper card. It covers
   (`ops.lm`, `ba.solver`), outlier rejection with re-triangulation
   (`ba.outliers`, `ops.triangulate`) and the RPC geometry they run on
   (`models`); the CG operator is a hand-written CUDA kernel
-  (`ops.schur_matvec`, source `csrc/schur_matvec.cu`).
+  (`ops.schur_matvec`, source `csrc/schur_matvec.cu`);
+* the refit of the adjusted RPCs (`ba.rpcfit`, batched f64 IRLS on the
+  device), the RPC files, and the scene driver and its outputs.
 
 Conventions:
 * entry points take `device=`; the default is the CUDA card, and asking for
@@ -45,3 +50,13 @@ def resolve_device(device=None):
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def main(config_path, device=None):
+    """Run the bundle adjustment of a json scene config on `device`
+    (default: the card). Returns the Scene."""
+    from sat_bundleadjust_tpu_torch.timeseries import Scene
+
+    scene = Scene(config_path, device=device)
+    scene.run_bundle_adjustment_for_RPC_refinement()
+    return scene

@@ -114,7 +114,9 @@ def build_problem(p, device, schur_mode=None):
 
 class BASolver:
     """Solver for one BAParams problem structure on one device: builds the
-    closures and the LMProblem once, for every round solved on it."""
+    closures and the LMProblem once, for every round solved on it.
+    `last_info` holds the counters of the last solve (iterations, host
+    syncs, CG iterations, matvecs, wall time)."""
 
     def __init__(self, p, schur_mode=None, jac_dtype=None, device=None):
         if getattr(p, "common_k", False):
@@ -135,6 +137,7 @@ class BASolver:
             ftol=float(ls["ftol"]),
             xtol=float(ls["xtol"]),
             schur_mode=self.mode,
+            cg_coarse_k=lm_ops.default_coarse_k(self.p.n_cam),
         )
 
     def solve(self, ls_params=None, verbose=False):
@@ -148,6 +151,7 @@ class BASolver:
         err_init = info.pop("err0")
         err_ba = info.pop("err_fin")
         info["wall_time"] = time.time() - t0
+        self.last_info = info
         return (cam0, pts0), (cam, pts), err_init, err_ba, info
 
 
@@ -169,3 +173,17 @@ def run_ba_optimization(p, ls_params=None, verbose=False, schur_mode=None, solve
         print("Reprojection error after  BA (mean / median): {:.2f} / {:.2f}".format(
             float(np.mean(err_ba)), float(np.median(err_ba))))
     return (cam0, pts0), (cam, pts), err_init, err_ba, info["iterations"]
+
+
+def _reproj_err(residuals, weights):
+    """Unweighted L2 reprojection error per observation (numpy)."""
+    r = np.asarray(residuals) / np.asarray(weights)[:, None]
+    return np.linalg.norm(r, axis=1)
+
+
+def compute_mean_reprojection_error_per_track(err, pts_ind, n_pts):
+    """Mean reprojection error per track, as a segment mean."""
+    err = np.asarray(err)
+    sums = np.bincount(pts_ind, weights=err, minlength=n_pts)
+    counts = np.bincount(pts_ind, minlength=n_pts)
+    return sums / np.maximum(counts, 1)

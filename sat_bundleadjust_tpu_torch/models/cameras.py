@@ -2,14 +2,16 @@
 decomposition, and the least-squares perspective fit of an RPC projection.
 
 Counterpart of `sat_bundleadjust_tpu/models/cameras.py` (host-side numpy,
-as there). `affine_rpc_approx` (a Jacobian of the RPC chain) and the affine
+as there, apart from `apply_rpc_projection`, which runs on tensors). `affine_rpc_approx` (a Jacobian of the RPC chain) and the affine
 matrix helpers wait for the matrix camera models.
 """
 
 import numpy as np
+import torch
 
+from sat_bundleadjust_tpu_torch.models import ellipsoid
 from sat_bundleadjust_tpu_torch.models.ellipsoid import latlon_to_ecef_np
-from sat_bundleadjust_tpu_torch.models.rpc import rpc_localization_np
+from sat_bundleadjust_tpu_torch.models.rpc import rpc_localization_np, rpc_projection, rpc_projection_np
 
 
 class SatelliteImage:
@@ -65,6 +67,22 @@ def decompose_perspective_camera(P):
     oC = -np.linalg.inv(M) @ T
     vecT = (R @ -oC[:, np.newaxis]).T[0]
     return K, R, vecT, oC
+
+
+def apply_rpc_projection(rpc, pts3d):
+    """Project (..., 3) ECEF points with an RPC whose fields are tensors on
+    the points' device: ECEF -> geodetic -> RPC, (..., 2) (col, row)."""
+    lat, lon, alt = ellipsoid.ecef_to_latlon(pts3d[..., 0], pts3d[..., 1], pts3d[..., 2])
+    col, row = rpc_projection(rpc, lon, lat, alt)
+    return torch.stack((col, row), dim=-1)
+
+
+def apply_rpc_projection_np(rpc, pts3d):
+    """Host-side numpy twin of apply_rpc_projection."""
+    pts3d = np.asarray(pts3d)
+    lat, lon, alt = ellipsoid.ecef_to_latlon_np(pts3d[..., 0], pts3d[..., 1], pts3d[..., 2])
+    col, row = rpc_projection_np(rpc, lon, lat, alt)
+    return np.stack((col, row), axis=-1)
 
 
 def generate_point_mesh(col_range, row_range, alt_range):

@@ -71,3 +71,23 @@ def latlon_to_ecef_np(lat, lon, alt):
     y = (v + alt) * np.cos(rad_lat) * np.sin(rad_lon)
     z = (v * (1.0 - _E2) + alt) * sin_lat
     return x, y, z
+
+
+def ecef_to_latlon_np(x, y, z):
+    """Numpy twin of ecef_to_latlon (host-side, float64)."""
+    import numpy as np
+
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    z = np.asarray(z, dtype=np.float64)
+    asq = _A ** 2
+    esq = _E ** 2
+    b = np.sqrt(asq * (1.0 - esq))
+    ep = np.sqrt((asq - b ** 2) / (b ** 2))
+    p = np.sqrt(x ** 2 + y ** 2)
+    th = np.arctan2(_A * z, b * p)
+    lon = np.arctan2(y, x)
+    lat = np.arctan2(z + (ep ** 2) * b * (np.sin(th) ** 3), p - esq * _A * (np.cos(th) ** 3))
+    n = _A / np.sqrt(1.0 - esq * (np.sin(lat) ** 2))
+    alt = p / np.cos(lat) - n
+    return lat * (180.0 / np.pi), lon * (180.0 / np.pi), alt

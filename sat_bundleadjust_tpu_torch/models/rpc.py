@@ -3,7 +3,9 @@
 Counterpart of `sat_bundleadjust_tpu/models/rpc.py:48-450`: the model,
 batching, the RPC00B monomial basis and its derivatives, projection, and
 localization by a fixed-count Newton iteration on the forward rational
-model. The file readers and writers are not ported yet.
+model, and the file formats (IKONOS `KEY: value` text, json, GDAL geotiff
+tags). `RPCModel` is a bare NamedTuple: where the JAX model has methods
+(`to_numpy`, `write_to_file`, ...), call the functions of this module.
 
 Monomial order (RPC00B, x = normalized lat, y = normalized lon,
 z = normalized alt):
@@ -14,6 +16,8 @@ z = normalized alt):
 `col` is governed by (samp_num, samp_den), `row` by (line_num, line_den).
 """
 
+import json
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -300,4 +304,137 @@ def rpc_from_dict(d):
         line_num=arr20(d["line_num"]), line_den=arr20(d["line_den"]),
         samp_num=arr20(d["samp_num"]), samp_den=arr20(d["samp_den"]),
         **{k: np.float64(d[k]) for k in RPCModel._fields[4:]},
+    )
+
+
+# ----------------------------------------------------------------------
+# construction and file IO (host-side, numpy),
+# sat_bundleadjust_tpu/models/rpc.py:429-632
+# ----------------------------------------------------------------------
+
+_IKONOS_SCALAR_KEYS = {
+    "LINE_OFF": "row_offset",
+    "SAMP_OFF": "col_offset",
+    "LAT_OFF": "lat_offset",
+    "LONG_OFF": "lon_offset",
+    "HEIGHT_OFF": "alt_offset",
+    "LINE_SCALE": "row_scale",
+    "SAMP_SCALE": "col_scale",
+    "LAT_SCALE": "lat_scale",
+    "LONG_SCALE": "lon_scale",
+    "HEIGHT_SCALE": "alt_scale",
+}
+
+_COEFF_PREFIXES = {
+    "LINE_NUM_COEFF": "line_num",
+    "LINE_DEN_COEFF": "line_den",
+    "SAMP_NUM_COEFF": "samp_num",
+    "SAMP_DEN_COEFF": "samp_den",
+}
+
+
+def _host(v):
+    """A field as a numpy array (tensors on any device are copied back)."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def rpc_to_numpy(rpc):
+    """An RPCModel with numpy fields."""
+    return map_rpc(_host, rpc)
+
+
+def rpc_to_dict(rpc):
+    r = rpc_to_numpy(rpc)
+    d = {k: getattr(r, k).tolist() for k in RPCModel._fields[:4]}
+    d.update({k: float(getattr(r, k)) for k in RPCModel._fields[4:]})
+    return d
+
+
+def rpc_from_rpc_file(path):
+    """Parse the IKONOS-style text format (`KEY: value [unit]` lines)."""
+    scalars = {}
+    coeffs = {v: np.zeros(N_COEFFS) for v in _COEFF_PREFIXES.values()}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or ":" not in line:
+                continue
+            key, _, rest = line.partition(":")
+            key = key.strip()
+            value = rest.strip().split()[0]
+            for prefix, field in _COEFF_PREFIXES.items():
+                if key.startswith(prefix):
+                    coeffs[field][int(key[len(prefix):].lstrip("_")) - 1] = float(value)
+                    break
+            else:
+                if key in _IKONOS_SCALAR_KEYS:
+                    scalars[_IKONOS_SCALAR_KEYS[key]] = float(value)
+    d = dict(scalars)
+    d.update(coeffs)
+    return rpc_from_dict(d)
+
+
+def write_rpc_file(rpc, path):
+    """Write the IKONOS-style text format, every value with 12 decimals."""
+    r = rpc_to_numpy(rpc)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    units = ["pixels", "pixels", "degrees", "degrees", "meters"] * 2
+    lines = ["{}: {:.12f} {}".format(key, float(getattr(r, field)), unit)
+             for (key, field), unit in zip(_IKONOS_SCALAR_KEYS.items(), units)]
+    for prefix, field in _COEFF_PREFIXES.items():
+        vals = getattr(r, field)
+        for i in range(N_COEFFS):
+            lines.append("{}_{}: {:.12f}".format(prefix, i + 1, float(vals[i])))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def rpc_from_json_file(path):
+    """Our field names, or the rpcm json naming (row_num, col_den, ...)."""
+    with open(path) as f:
+        d = json.load(f)
+    if "line_num" in d:
+        return rpc_from_dict(d)
+    remap = {"row_num": "line_num", "row_den": "line_den",
+             "col_num": "samp_num", "col_den": "samp_den"}
+    return rpc_from_dict({remap.get(k, k): v for k, v in d.items()})
+
+
+def write_rpc_json(rpc, path):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(rpc_to_dict(rpc), f, indent=2)
+
+
+def rpc_from_geotiff_dict(tags):
+    """An RPCModel from GDAL-style geotiff RPC tags (coefficient lists as
+    space-separated strings or sequences)."""
+    def coeflist(key):
+        v = tags[key]
+        return [float(x) for x in (v.split() if isinstance(v, str) else v)]
+
+    d = {field: coeflist(key) for key, field in _COEFF_PREFIXES.items()}
+    d.update({field: float(tags[key]) for key, field in _IKONOS_SCALAR_KEYS.items()})
+    return rpc_from_dict(d)
+
+
+def rpc_to_geotiff_dict(rpc):
+    r = rpc_to_numpy(rpc)
+    g = "{:.12g}".format
+    out = {key: g(float(getattr(r, field))) for key, field in _IKONOS_SCALAR_KEYS.items()}
+    out.update({key: " ".join(g(float(x)) for x in getattr(r, field))
+                for key, field in _COEFF_PREFIXES.items()})
+    return out
+
+
+def scale_rpc(rpc, alpha):
+    """The RPC of the image scaled by alpha (image offsets and scales)."""
+    r = rpc_to_numpy(rpc)
+    return r._replace(
+        row_offset=r.row_offset * alpha,
+        col_offset=r.col_offset * alpha,
+        row_scale=r.row_scale * alpha,
+        col_scale=r.col_scale * alpha,
     )

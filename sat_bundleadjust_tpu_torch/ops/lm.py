@@ -19,6 +19,7 @@ turns into a rejected step.
 """
 
 import math
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -77,6 +78,15 @@ class LMConfig(NamedTuple):
     # CG operator: "auto" = the schur_wz kernel (its plain version on CPU
     # tensors); "plain" = schur_wz_plain; "aos" = dense f32 reductions
     matvec: str = "auto"
+
+
+def default_coarse_k(n_cam):
+    """Cluster count of the coarse CG level: SATBA_CG_COARSE_K where set,
+    else 1 (the global cluster), as in the JAX package."""
+    env = os.environ.get("SATBA_CG_COARSE_K")
+    if env is not None:
+        return max(1, int(env))
+    return 1
 
 
 def new_stats():

@@ -7,6 +7,8 @@ hstep 1, stop at |lambda| < 1e-5, at most 24 steps), with converged duos
 frozen; the per-track mean over pairs is a segment mean on the host.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -17,7 +19,7 @@ from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, rpc_localization, r
 RPCH_ITERS = 24
 RPCH_HSTEP = 1.0
 RPCH_LAMBDA_STOP = 1e-5
-CHUNK = 500_000  # duos per batch: bounds the device temporaries
+CHUNK = 500_000  # duos per batch (SATBA_TRIANG_CHUNK): bounds the device temporaries
 
 
 def _pair_correspondence(rpc_a, rpc_b, x, y, h):
@@ -96,9 +98,10 @@ def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, devic
         return np.zeros((n_pts, 3))
     rpcs = stack_rpcs(cameras, dev)
     B = int(batch["track"].shape[0])
+    chunk = int(os.environ.get("SATBA_TRIANG_CHUNK", CHUNK))
     sums = np.zeros((n_pts, 3))
-    for s in range(0, B, CHUNK):
-        sl = slice(s, min(s + CHUNK, B))
+    for s in range(0, B, chunk):
+        sl = slice(s, min(s + chunk, B))
         cam_a = torch.as_tensor(batch["cam_a"][sl], dtype=torch.int64, device=dev)
         cam_b = torch.as_tensor(batch["cam_b"][sl], dtype=torch.int64, device=dev)
         pts3d, _ = rpc_triangulation(

@@ -1,0 +1,317 @@
+"""Scene / time-series driver: loads geotiffs and RPCs, groups the images
+into acquisition dates and runs the bundle adjustment.
+
+Counterpart of `sat_bundleadjust_tpu/timeseries.py` on one device, with
+the same config keys and the three `rpc_src` values (txt, json, geotiff).
+Of the three BA modes, `ba_bruteforce` is ported; `ba_global` and
+`ba_sequential` raise (ROADMAP.md, Queue 1 item 8) and never fall through
+to another mode.
+"""
+
+import glob
+import os
+import shutil
+import sys
+import timeit
+
+import numpy as np
+
+from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
+from sat_bundleadjust_tpu_torch.models.rpc import rpc_from_json_file, rpc_from_rpc_file
+from sat_bundleadjust_tpu_torch.pipeline import BundleAdjustmentPipeline
+from sat_bundleadjust_tpu_torch.utils import io as loader
+from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
+from sat_bundleadjust_tpu_torch.utils.io import flush_print
+
+class Error(Exception):
+    pass
+
+
+def get_acquisition_date(geotiff_path):
+    """TIFFTAG_DATETIME, else a YYYYMMDD_HHMMSS filename prefix."""
+    import datetime
+
+    from sat_bundleadjust_tpu_torch.utils import tiffmeta
+
+    if os.path.exists(geotiff_path):
+        dt = tiffmeta.datetime_from_tiff(geotiff_path)
+        if dt is not None:
+            return dt
+    date_string = os.path.basename(geotiff_path)[:15]
+    return datetime.datetime.strptime(date_string, "%Y%m%d_%H%M%S")
+
+
+def group_files_by_date(datetimes, image_fnames, margin_mins=30.0):
+    """Cluster images into acquisition groups: scanning in time order, an
+    image joins the open group while it lies strictly within margin_mins of
+    the group's first image."""
+    order = np.argsort(datetimes, kind="stable")
+    if len(order) == 0:
+        return []
+    t0 = datetimes[order[0]]
+    offsets = np.array([(datetimes[i] - t0).total_seconds() for i in order])
+
+    timeline = []
+    start, n = 0, len(order)
+    while start < n:
+        end = int(np.searchsorted(offsets, offsets[start] + margin_mins * 60.0, side="left"))
+        members = order[start:end]
+        anchor = datetimes[members[0]]
+        timeline.append({
+            "datetime": anchor,
+            "id": anchor.strftime("%Y%m%d_%H%M%S"),
+            "fnames": [image_fnames[i] for i in members],
+            "n_images": len(members),
+            "adjusted": False,
+            "image_weights": [],
+        })
+        start = end
+    return timeline
+
+
+class Scene:
+    def __init__(self, scene_config, device=None):
+        """scene_config: a json path or a dict with the keys of the JAX
+        package's Scene (geotiff_dir, rpc_dir, rpc_src, output_dir,
+        ba_method, ... and the FT_* keys). The run goes on `device`
+        (default: the card). `timing` holds the scene load's seconds."""
+        t0 = timeit.default_timer()
+        self.device = resolve_device(device)
+        args = loader.load_dict_from_json(scene_config) if isinstance(scene_config, str) else dict(scene_config)
+
+        self.geotiff_dir = args["geotiff_dir"]
+        self.rpc_dir = args["rpc_dir"]
+        self.rpc_src = args["rpc_src"]
+        self.dst_dir = args["output_dir"]
+
+        self.ba_method = args.get("ba_method", "ba_bruteforce")
+        self.selected_timeline_indices = args.get("timeline_indices", None)
+        self.geotiff_label = args.get("geotiff_label", None)
+        self.n_dates = int(args.get("n_dates", 1))
+
+        self.cam_model = args.get("cam_model", "rpc")
+        self.correction_params = args.get("correction_params", ["R"])
+        self.predefined_matches = args.get("predefined_matches", False)
+        self.fix_ref_cam = args.get("fix_ref_cam", False)
+        self.ref_cam_weight = float(args.get("ref_cam_weight", 1))
+        self.clean_outliers = args.get("clean_outliers", True)
+        self.reset = args.get("reset", True)
+        self.remove_FT_files = args.get("remove_FT_files", False)
+        self.save_figures = args.get("save_figures", True)
+        self.extra_ba_config = {
+            k: args[k]
+            for k in ("max_init_reproj_error", "outlier_thr_rounding", "dem_path", "distributed")
+            if k in args
+        }
+
+        if not os.path.isdir(self.geotiff_dir):
+            raise Error('geotiff_dir "{}" does not exist'.format(self.geotiff_dir))
+        if not os.path.isdir(self.rpc_dir):
+            raise Error('rpc_dir "{}" does not exist'.format(self.rpc_dir))
+        for v in self.correction_params:
+            if v not in ["R", "T", "K", "COMMON_K"]:
+                raise Error("{} is not a valid camera parameter to optimize".format(v))
+
+        os.makedirs(self.dst_dir, exist_ok=True)
+        self.init_ba_input_data()
+
+        self.tracks_config = init_feature_tracks_config()
+        for k in list(self.tracks_config.keys()):
+            if k in args:
+                self.tracks_config[k] = args[k]
+        if "FT_max_kp" in args and "FT_kp_max" not in args:
+            self.tracks_config["FT_kp_max"] = args["FT_max_kp"]
+
+        self.aoi_lonlat = None
+        self.timeline = self.load_scene()
+        if "aoi_geojson" in args:
+            self.aoi_lonlat = loader.load_geojson(args["aoi_geojson"])
+            print("AOI geojson loaded from {}".format(args["aoi_geojson"]))
+            loader.save_geojson("{}/AOI_init.json".format(self.dst_dir), self.aoi_lonlat)
+
+        start_date = self.timeline[0]["datetime"].date()
+        end_date = self.timeline[-1]["datetime"].date()
+        print("Number of acquisition dates: {} (from {} to {})".format(len(self.timeline), start_date, end_date))
+        print("Number of images: {}".format(int(np.sum([d["n_images"] for d in self.timeline]))))
+        self.timing = {"scene_load_s": timeit.default_timer() - t0}
+        print("Scene loaded in {:.2f} seconds".format(self.timing["scene_load_s"]))
+
+    # ------------------------------------------------------------------
+
+    def load_scene(self):
+        """Every image's RPC (from rpc_src), its acquisition date, and the
+        initial RPCs written to output_dir/rpcs_init. Scenes with .rpc files
+        and no rasters are accepted (rpc_src txt)."""
+        all_fnames, all_rpcs, all_datetimes = [], [], []
+
+        geotiff_paths = sorted(glob.glob(os.path.join(self.geotiff_dir, "**/*.tif"), recursive=True))
+        if not geotiff_paths and self.rpc_src == "txt":
+            geotiff_paths = [p[: -len(".rpc")] + ".tif"
+                             for p in sorted(glob.glob(os.path.join(self.rpc_dir, "*.rpc")))]
+        if self.geotiff_label is not None:
+            geotiff_paths = [fn for fn in geotiff_paths if self.geotiff_label in fn]
+
+        for tif_fname in geotiff_paths:
+            f_id = loader.get_id(tif_fname)
+            if self.rpc_src == "geotiff":
+                rpc = loader.rpc_from_geotiff(tif_fname)
+            elif self.rpc_src == "json":
+                rpc = rpc_from_json_file(os.path.join(self.rpc_dir, f_id + ".json"))
+            elif self.rpc_src == "txt":
+                rpc = rpc_from_rpc_file(os.path.join(self.rpc_dir, f_id + ".rpc"))
+            else:
+                raise ValueError("Unknown rpc_src value: {}".format(self.rpc_src))
+            all_fnames.append(tif_fname)
+            all_rpcs.append(rpc)
+            all_datetimes.append(get_acquisition_date(tif_fname))
+
+        init_rpcs_dir = os.path.join(self.dst_dir, "rpcs_init")
+        loader.save_rpcs(["{}/{}.rpc".format(init_rpcs_dir, loader.get_id(fn)) for fn in all_fnames],
+                         all_rpcs)
+        return group_files_by_date(all_datetimes, all_fnames)
+
+    def get_timeline_attributes(self, timeline_indices, attributes):
+        for idx in timeline_indices:
+            row = ["{}".format(self.timeline[idx][a]) for a in attributes]
+            print("  {} | {}".format(idx, " | ".join(row)))
+
+    # ------------------------------------------------------------------
+
+    def init_ba_input_data(self):
+        """No previously adjusted images: they come in with ba_sequential,
+        which is not ported."""
+        self.n_adj = 0
+        self.images_new = []
+
+    def load_data_from_dates(self, timeline_indices):
+        """The images of the given dates, with their initial RPCs."""
+        im_fnames = []
+        for t_idx in timeline_indices:
+            im_fnames.extend(self.timeline[t_idx]["fnames"])
+        flush_print("{} new images for bundle adjustment !".format(len(im_fnames)))
+        if im_fnames:
+            rpcs = loader.load_rpcs_from_dir(im_fnames, os.path.join(self.dst_dir, "rpcs_init"),
+                                             extension="rpc", verbose=True)
+            self.images_new.extend(SatelliteImage(fn, rpc) for fn, rpc in zip(im_fnames, rpcs))
+
+    def set_ba_input_data(self, t_indices, input_dir, output_dir):
+        print("\nSetting bundle adjustment input data...\n")
+        self.init_ba_input_data()
+        self.load_data_from_dates(t_indices)
+        self.ba_data = {"in_dir": input_dir, "out_dir": output_dir, "images": self.images_new}
+
+    # ------------------------------------------------------------------
+
+    def bundle_adjust(self):
+        t0 = timeit.default_timer()
+        extra = {
+            "cam_model": self.cam_model,
+            "n_adj": self.n_adj,
+            "correction_params": self.correction_params,
+            "predefined_matches": self.predefined_matches,
+            "fix_ref_cam": self.fix_ref_cam,
+            "ref_cam_weight": self.ref_cam_weight,
+            "clean_outliers": self.clean_outliers,
+            "save_figures": self.save_figures,
+        }
+        extra.update(self.extra_ba_config)
+        if self.aoi_lonlat is not None:
+            extra["aoi"] = self.aoi_lonlat
+        self.ba_pipeline = BundleAdjustmentPipeline(self.ba_data, self.tracks_config, extra,
+                                                    device=self.device)
+        self.ba_pipeline.run()
+
+        n_tracks = self.ba_pipeline.ba_params.pts3d_ba.shape[0]
+        elapsed = timeit.default_timer() - t0
+        ba_e = float(np.mean(self.ba_pipeline.ba_e))
+        init_e = float(np.mean(self.ba_pipeline.init_e))
+        return elapsed, self.ba_pipeline.feature_tracks_running_time, n_tracks, ba_e, init_e
+
+    def rm_tmp_files_after_ba(self):
+        shutil.rmtree("{}/{}/matches".format(self.dst_dir, self.ba_method), ignore_errors=True)
+
+    def reset_ba_params(self):
+        ba_dir = "{}/{}".format(self.dst_dir, self.ba_method)
+        if os.path.exists(ba_dir):
+            shutil.rmtree(ba_dir)
+        for t in self.timeline:
+            t["adjusted"] = False
+
+    def run_sequential_bundle_adjustment(self):
+        raise NotImplementedError(
+            "ba_method 'ba_sequential' is not ported yet (ROADMAP.md, Queue 1 item 8)")
+
+    def run_global_bundle_adjustment(self):
+        raise NotImplementedError(
+            "ba_method 'ba_global' is not ported yet (ROADMAP.md, Queue 1 item 8)")
+
+    def run_bruteforce_bundle_adjustment(self):
+        ba_dir = os.path.join(self.dst_dir, self.ba_method)
+        os.makedirs(ba_dir, exist_ok=True)
+        self.tracks_config["FT_predefined_pairs"] = []
+        self.set_ba_input_data(self.selected_timeline_indices, ba_dir, ba_dir)
+        running_time, time_FT, n_tracks, ba_e, init_e = self.bundle_adjust()
+        if self.remove_FT_files:
+            self.rm_tmp_files_after_ba()
+        flush_print("All dates adjusted in {:.2f} seconds, {} ({:.3f}, {:.3f})".format(
+            running_time, n_tracks, init_e, ba_e))
+        flush_print("Total BA iterations: {}".format(int(self.ba_pipeline.ba_iters)))
+
+    def is_ba_method_valid(self, ba_method):
+        return ba_method in ["ba_global", "ba_sequential", "ba_bruteforce"]
+
+    def compute_reprojection_error_before_and_after_bundle_adjust(self):
+        """Mean reprojection error of the tracks, triangulated and
+        reprojected with the initial RPCs and with the written .rpc_adj
+        files (re-read from disk)."""
+        from sat_bundleadjust_tpu_torch.models.cameras import apply_rpc_projection_np
+        from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
+
+        im_fnames = [im.geotiff_path for im in self.ba_pipeline.images]
+        C = self.ba_pipeline.ba_params.C
+        pairs = self.ba_pipeline.ba_params.pairs_to_triangulate
+
+        rpcs_init = loader.load_rpcs_from_dir(
+            im_fnames, os.path.join(self.dst_dir, "rpcs_init"), extension="rpc", verbose=False)
+        rpcs_ba = loader.load_rpcs_from_dir(
+            im_fnames, os.path.join(self.dst_dir, self.ba_method, "rpcs_adj"),
+            extension="rpc_adj", verbose=False)
+        pts3d_before = init_pts3d(C, rpcs_init, "rpc", pairs, device=self.device)
+        pts3d_after = init_pts3d(C, rpcs_ba, "rpc", pairs, device=self.device)
+
+        err_before, err_after = [], []
+        for cam_idx in range(C.shape[0] // 2):
+            sel = np.where(~np.isnan(C[2 * cam_idx]))[0]
+            obs2d = C[(cam_idx * 2): (cam_idx * 2 + 2), sel].T
+            proj_b = apply_rpc_projection_np(rpcs_init[cam_idx], pts3d_before[sel])
+            proj_a = apply_rpc_projection_np(rpcs_ba[cam_idx], pts3d_after[sel])
+            err_before.extend(np.linalg.norm(proj_b - obs2d, axis=1).tolist())
+            err_after.extend(np.linalg.norm(proj_a - obs2d, axis=1).tolist())
+        return float(np.mean(err_before)), float(np.mean(err_after))
+
+    def run_bundle_adjustment_for_RPC_refinement(self):
+        if self.selected_timeline_indices is None:
+            self.selected_timeline_indices = list(range(len(self.timeline)))
+            flush_print("All dates selected to bundle adjust!\n")
+        else:
+            flush_print("Found {} selected dates to bundle adjust! timeline_indices: {}\n".format(
+                len(self.selected_timeline_indices), self.selected_timeline_indices))
+        for idx, t_idx in enumerate(self.selected_timeline_indices):
+            flush_print("({}) {} --> {} views".format(
+                idx + 1, self.timeline[t_idx]["datetime"], self.timeline[t_idx]["n_images"]))
+        # the modes that are not ported raise before anything is reset
+        if self.ba_method == "ba_sequential":
+            self.run_sequential_bundle_adjustment()
+        elif self.ba_method == "ba_global":
+            self.run_global_bundle_adjustment()
+        if self.reset:
+            self.reset_ba_params()
+
+        if self.ba_method == "ba_bruteforce":
+            flush_print("\nRunning bruteforce bundle adjustment !")
+            self.run_bruteforce_bundle_adjustment()
+        else:
+            print("ba_method {} is not valid !".format(self.ba_method))
+            print("accepted values are: [ba_sequential, ba_global, ba_bruteforce]")
+            sys.exit()

@@ -2,10 +2,12 @@
 
 Counterpart of `sat_bundleadjust_tpu/tracks/build.py` (host numpy, as
 there): union-find over the pairwise matches into the correspondence matrix
-C (2M x N) and the keypoint-id matrix C_v2 (M x N). The camera
-connectivity checks come with the pipeline orchestration. The union-find is the repository's committed C++
+C (2M x N) and the keypoint-id matrix C_v2 (M x N), and the camera
+connectivity checks. The union-find is the repository's committed C++
 library `native/libtrackbuild.so`, loaded read-only through ctypes, with an
-iterative path-halving Python fallback where it cannot be loaded.
+iterative path-halving Python fallback where it cannot be loaded. The
+connectivity graph's components come from the same union-find (no
+networkx).
 """
 
 import ctypes
@@ -109,3 +111,88 @@ def feature_tracks_from_pairwise_matches(features, pairwise_matches, pairs_to_tr
 
     keep = filter_C_using_pairs_to_triangulate(C, pairs_to_triangulate)
     return C[:, keep], C_v2[:, keep]
+
+
+def check_pairs(camera_indices, pairs_to_match, pairs_to_triangulate):
+    """Every camera must appear in both pair lists. Returns (fatal_error,
+    err_msg, disconnected camera indices)."""
+    fatal_error, err_msg, disconnected = False, "", []
+    camera_indices = set(int(i) for i in camera_indices)
+    for name, pairs in (("pairs_to_match", pairs_to_match),
+                        ("pairs_to_triangulate", pairs_to_triangulate)):
+        present = set(np.unique(np.array(pairs).flatten())) if pairs else set()
+        missing = list(camera_indices - present)
+        if missing:
+            disconnected = missing
+            fatal_error = len(missing) > len(camera_indices) // 2
+            print("WARNING: Found {} cameras out of {} missing in {}".format(
+                len(missing), len(camera_indices), name))
+            print("         The disconnected camera indices are: {}".format(missing))
+            if fatal_error:
+                err_msg = "More than 50% of the cameras are disconnected in terms of feature tracking"
+    return fatal_error, err_msg, disconnected
+
+
+def check_correspondence_matrix(C, min_obs_cam=10):
+    """Every camera needs min_obs_cam observations. Returns (fatal_error,
+    err_msg, disconnected camera indices)."""
+    fatal_error, err_msg, disconnected = False, "", []
+    if C is None or C.shape[0] // 2 > C.shape[1]:
+        return True, "Found less tracks than cameras", disconnected
+    n_cam = C.shape[0] // 2
+    obs_per_cam = np.sum(~np.isnan(C[::2]), axis=1)
+    if np.sum(obs_per_cam < min_obs_cam) > 0:
+        disconnected = np.arange(n_cam)[obs_per_cam < min_obs_cam].tolist()
+        fatal_error = len(disconnected) > n_cam // 2
+        print("WARNING: Found {} cameras out of {} with less than {} tie point observations"
+              .format(len(disconnected), n_cam, min_obs_cam))
+        print("         The disconnected camera indices are: {}".format(disconnected))
+        if fatal_error:
+            err_msg = "More than 50% of the cameras are disconnected in terms of feature tracking"
+    return fatal_error, err_msg, disconnected
+
+
+def build_connectivity_matrix(C, min_matches=10):
+    """(M, M) pairwise match counts, counts below min_matches set to 0."""
+    mask = (~np.isnan(C[::2])).astype(np.int64)
+    A = mask @ mask.T
+    np.fill_diagonal(A, 0)
+    A[A < min_matches] = 0
+    return A.astype(np.float64)
+
+
+def build_connectivity_graph(C, min_matches, verbose=True):
+    """The camera graph (an edge where two cameras share more than
+    min_matches tracks) and its connected components.
+
+    Returns (G, edges, matches_per_edge, n_cc, missing_cams): G is a dict
+    of the nodes, the edges with their match counts, and the components
+    (sorted node lists, ordered by their first node, as networkx lists
+    them); missing_cams are the cameras outside the largest component (the
+    first of equal size)."""
+    n_cam = C.shape[0] // 2
+    A = build_connectivity_matrix(C, 0)
+    ii, jj = np.nonzero(np.triu(A > min_matches, k=1))
+    edges = list(zip(ii.tolist(), jj.tolist()))
+    matches_per_edge = [int(A[i, j]) for i, j in edges]
+
+    roots = union_find(n_cam, ii, jj)
+    components = {}
+    for node, root in enumerate(roots.tolist()):
+        components.setdefault(root, []).append(node)
+    cc = sorted(components.values(), key=lambda c: c[0])
+    n_cc = len(cc)
+    largest = int(np.argmax([len(c) for c in cc])) if cc else 0
+    missing_cams = sorted(set(range(n_cam)) - set(cc[largest])) if cc else []
+    G = {"nodes": list(range(n_cam)), "edges": edges, "weights": matches_per_edge,
+         "components": cc}
+    if verbose:
+        obs_per_cam = np.sum(~np.isnan(C), axis=1)[::2]
+        print("Connectivity graph: {} connected components (CCs)".format(n_cc))
+        print("                    {} missing cameras from largest CC: {}".format(
+            len(missing_cams), missing_cams))
+        print("                    {} edges".format(len(edges)))
+        if matches_per_edge:
+            print("                    {} min n_matches in an edge".format(min(matches_per_edge)))
+        print("                    {} min obs per camera\n".format(int(np.min(obs_per_cam))))
+    return G, edges, matches_per_edge, n_cc, missing_cams

@@ -1,15 +1,19 @@
 """Host-side IO helpers of the tracks front end.
 
-Counterpart of the parts of `sat_bundleadjust_tpu/utils/io.py` that the
-front end uses: printing, ids, image size and pixels (cv2, then PIL),
-percentile equalization, and the list/path savers. The RPC-file readers and
-the AOI masks come with the modules that need them.
+Counterpart of `sat_bundleadjust_tpu/utils/io.py` for one process:
+printing, ids, json, image size and pixels (cv2, then PIL), percentile
+equalization, the RPC files of a scene, the list/path savers, geojson, the
+`.ply` point clouds and the AOI of a set of images. The AOI keypoint masks
+(cv2) and the projection-matrix and predefined-matches savers wait for the
+modules that need them.
 """
 
+import json
 import os
 
 import numpy as np
 
+from sat_bundleadjust_tpu_torch.models.rpc import rpc_from_rpc_file, write_rpc_file
 from sat_bundleadjust_tpu_torch.utils import tiffmeta
 
 
@@ -35,6 +39,23 @@ def get_time_in_hours_mins_secs(seconds):
     hours, rem = divmod(seconds, 3600)
     minutes, secs = divmod(rem, 60)
     return "{:0>2}:{:0>2}:{:05.2f}".format(int(hours), int(minutes), secs)
+
+
+def add_suffix_to_fname(src_fname, suffix):
+    base = os.path.basename(src_fname)
+    file_id, ext = os.path.splitext(base)
+    return src_fname.replace(base, file_id + suffix + ext)
+
+
+def save_dict_to_json(d, path):
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(d, f, indent=2)
+
+
+def load_dict_from_json(path):
+    with open(path) as f:
+        return json.load(f)
 
 
 def read_image_size(path, rpc=None):
@@ -106,3 +127,74 @@ def save_list_of_paths(path, paths):
     with open(path, "w") as f:
         for p in paths:
             f.write("%s\n" % p)
+
+
+def save_rpcs(filenames, rpcs):
+    for fn, rpc in zip(filenames, rpcs):
+        write_rpc_file(rpc, fn)
+
+
+def load_rpcs_from_dir(image_fnames_list, rpc_dir, suffix="", extension="rpc", verbose=True):
+    """The RPC of every image, read from <rpc_dir>/<image id><suffix>.<extension>."""
+    rpcs = []
+    for fname in image_fnames_list:
+        rpc_basename = "{}.{}".format(get_id(add_suffix_to_fname(fname, suffix)), extension)
+        rpcs.append(rpc_from_rpc_file(os.path.join(rpc_dir, rpc_basename)))
+    if verbose:
+        flush_print("Loaded {} rpcs".format(len(image_fnames_list)))
+    return rpcs
+
+
+def rpc_from_geotiff(path):
+    """The RPC of a geotiff's tags (tag 50844)."""
+    rpc = tiffmeta.rpc_from_tiff(path)
+    if rpc is None:
+        raise IOError("no RPC tag found in {}".format(path))
+    return rpc
+
+
+def save_geojson(path, geojson):
+    save_dict_to_json({"coordinates": geojson["coordinates"], "type": "Polygon"}, path)
+
+
+def load_geojson(path):
+    from sat_bundleadjust_tpu_torch.utils.geo import geojson_polygon
+
+    d = load_dict_from_json(path)
+    return geojson_polygon(np.array(d["coordinates"][0]))
+
+
+def write_point_cloud_ply(filename, point_cloud, color=None):
+    """ASCII .ply, one vertex per row of point_cloud (N, 3)."""
+    os.makedirs(os.path.dirname(os.path.abspath(filename)), exist_ok=True)
+    with open(filename, "w") as f:
+        n = point_cloud.shape[0]
+        f.write("ply\nformat ascii 1.0\nelement vertex {}\n".format(n))
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        if color is not None:
+            f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                    "property uchar alpha\n")
+            f.write("element face 0\nproperty list uchar int vertex_indices\n")
+        f.write("end_header\n")
+        for i in range(n):
+            p = point_cloud[i]
+            f.write("{} {} {}".format(p[0], p[1], p[2]))
+            if color is not None:
+                f.write(" {} {} {} 255".format(*color[:3]))
+            f.write("\n")
+
+
+def read_point_cloud_ply(filename):
+    with open(filename) as f:
+        lines = [x.strip() for x in f.readlines()]
+    start = lines.index("end_header") + 1
+    return np.array([[float(v) for v in line.split()[:3]] for line in lines[start:] if line])
+
+
+def load_aoi_from_multiple_images(images, verbose=False):
+    """The union of the images' footprints (lon/lat geojson)."""
+    from sat_bundleadjust_tpu_torch.utils.geo import combine_lonlat_geojson_borders
+
+    if verbose:
+        print("Defined aoi from union of all geotiff footprints")
+    return combine_lonlat_geojson_borders([im.lonlat_geojson for im in images])

@@ -259,3 +259,43 @@ def test_nn2_f32_kernel_on_non_integer_descriptors(cuda):
     moved = got[:, 2] != ref[:, 2]
     assert bool(((ref[:, 1] - ref[:, 0])[moved] <= 2 * tol).all())
     assert float(moved.float().mean()) < 0.01
+
+
+@pytest.mark.cuda
+def test_rpc_refit_on_the_card_matches_cpu(cuda):
+    """fit_rpcs_batched on the card (f64 batched Cholesky) against the CPU:
+    the same margins, fit errors within 1e-6 px, and the refit RPCs within
+    1e-4 px of each other on a ground grid."""
+    from sat_bundleadjust_tpu_torch.ba import rpcfit
+    from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
+    from sat_bundleadjust_tpu_torch.models.ellipsoid import latlon_to_ecef_np
+    from sat_bundleadjust_tpu_torch.models.rpc import rpc_projection_np
+
+    rng = np.random.RandomState(0)
+    off = {"col0": 0.0, "row0": 0.0, "width": 3200, "height": 1350}
+    rpcs, rts = [], []
+    for i in range(6):
+        r = demo.make_synthetic_rpc(view_dx=300 * np.cos(i), view_dy=300 * np.sin(i))
+        if i == 0:
+            den = r.line_den.copy()
+            den[1], den[2] = 0.05, -0.03
+            r = r._replace(line_den=den, samp_den=den.copy())
+        im = SatelliteImage("x.tif", r, offset=dict(off))
+        im.set_camera_center()
+        rpcs.append(r)
+        rts.append(np.concatenate([rng.normal(0, 2e-5, 3), np.zeros(3), im.center]))
+    gt = np.array([1.5, -2.0, 0.7])
+    pts = np.stack(latlon_to_ecef_np(np.full(10, 11.02), np.full(10, -72.71), np.full(10, 50.0)), 1)
+    args = (rts, gt, rpcs, [dict(off)] * 6, [pts + gt] * 6)
+    res_cpu = rpcfit.fit_rpcs_batched(*args, device="cpu")
+    stats = {}
+    res_gpu = rpcfit.fit_rpcs_batched(*args, device=cuda, stats=stats)
+    g = np.linspace(-1, 1, 7)
+    LO, LA, AL = np.meshgrid(-72.71 + 0.03 * g, 11.02 + 0.02 * g, np.linspace(-500, 600, 5))
+    for (rc, ec, mc), (rg, eg, mg) in zip(res_cpu, res_gpu):
+        assert mg == mc
+        assert abs(eg.max() - ec.max()) < 1e-6 and abs(np.median(eg) - np.median(ec)) < 1e-6
+        pc = np.stack(rpc_projection_np(rc, LO.ravel(), LA.ravel(), AL.ravel()), 1)
+        pg = np.stack(rpc_projection_np(rg, LO.ravel(), LA.ravel(), AL.ravel()), 1)
+        assert np.abs(pg - pc).max() < 1e-4
+    assert stats["rounds"] >= 1
