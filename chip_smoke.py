@@ -669,8 +669,16 @@ def check_nn2(ft, images, dev):
     djn = (djf + torch.rand(djf.shape, generator=g, device=dev)).contiguous()
     fn = nm.nn2_batched(din, djn, li, hj, mi, mj, thr)
     fn_plain = nm.nn2_plain(din, djn, li, hj, mi, mj, thr)
-    s = nm.nn2_single(dif[0], djf[0], li[0], hj[0], mi[0], mj[0], float(thr[0]))
+    thr0 = float(thr[0])  # read once: a read from the card inside a timed call would sync it
+    s = nm.nn2_single(dif[0], djf[0], li[0], hj[0], mi[0], mj[0], thr0)
     s_plain = nm.nn2_plain(dif[:1], djf[:1], li[:1], hj[:1], mi[:1], mj[:1], thr[:1])[0]
+    # the single pair with one column split and with the wrapper's choice,
+    # on integer and on non-integer descriptors: the bits must not depend on S
+    S_single = nm.column_splits(1, n1, n2, dev)
+    pair0 = [tuple(x[:1].contiguous() for x in (d_i, d_j, li, hj, mi, mj, thr))
+             for d_i, d_j in ((dif, djf), (din, djn))]
+    by_split = [[nm._launch_f32(ops, 1, n1, n2, splits=S) for S in (1, S_single)]
+                for ops in pair0]
     torch.cuda.synchronize()
 
     assert torch.equal(a, plain), "nn2_batched_i8 differs from its plain version"
@@ -678,6 +686,10 @@ def check_nn2(ft, images, dev):
     assert torch.equal(f, a), "nn2_batched on integer descriptors differs from the int8 kernel"
     s_packed = torch.stack([s[0], s[1], s[2].float()])
     assert torch.equal(s_packed, a[0]) and torch.equal(s_packed, s_plain), "nn2_single differs"
+    assert S_single > 1, S_single
+    for one, chosen in by_split:
+        assert torch.equal(one, chosen), "the f32 kernel's bits depend on its column split"
+    assert torch.equal(by_split[1][0], fn[:1]), "one pair alone differs from its row of the batch"
     # non-integer descriptors: distances are differences of terms up to
     # S = max sq_i + max sq_j, summed in other orders by kernel and cuBLAS
     S = float((din * din).sum(-1).max() + (djn * djn).sum(-1).max())
@@ -688,16 +700,43 @@ def check_nn2(ft, images, dev):
     argmin_diff = float(moved.float().mean())
     near_tie = bool(((fn_plain[:, 1] - fn_plain[:, 0])[moved] <= 2 * tol).all())
     assert err_f <= tol and near_tie, (err_f, tol, argmin_diff)
+
+    def d1_error_to_exact(res):
+        """d1 minus the exact (float64) distance of its row to the column in
+        idx, over the rows with a match: mean and max |.|"""
+        found = res[:, 0] < nm.BIG
+        d_at = torch.gather(djn, 1, res[:, 2].long()[..., None].expand(-1, -1, 128))
+        e = (res[:, 0].double() - ((din.double() - d_at.double()) ** 2).sum(-1))[found]
+        return float(e.mean()), float(e.abs().max())
+
+    bias = {"kernel": d1_error_to_exact(fn), "plain": d1_error_to_exact(fn_plain)}
+    # the tensor cores truncate where they add: a mean bias, bounded as in
+    # tests/test_torch_cuda.py::test_nn2_f32_kernel_bias_against_exact_distances
+    eps_S = torch.finfo(torch.float32).eps * S
+    assert abs(bias["kernel"][0]) <= 4 * eps_S and bias["kernel"][1] <= tol, (bias, eps_S)
     n_valid = int(mi.sum())
     n_found = int((a[:, 0] < nm.BIG).sum())
     log("2-NN at the largest of slice C's {} staged chunks: B={} n1={} n2={} ({} valid rows, "
         "{} with a neighbour); int8 kernel bit-identical to plain and repeatable; f32 kernel "
         "on the same integer descriptors bit-identical; f32 on non-integer descriptors "
         "max|err| {:.3g} (tolerance {:.3g} = 16 ulp of S={:.4g}), argmin differs in {:.2e} of "
-        "rows; single-pair entry equal to row 0".format(
-            n_chunks, B, n1, n2, n_valid, n_found, err_f, tol, S, argmin_diff))
+        "rows; single-pair entry equal to row 0; one pair with S = 1 and with the wrapper's "
+        "S = {} column splits bit-identical (integer and non-integer descriptors)".format(
+            n_chunks, B, n1, n2, n_valid, n_found, err_f, tol, S, argmin_diff, S_single))
+    log("f32 on non-integer descriptors, d1 minus the exact distance to its column: kernel "
+        "mean {:.4g} max|.| {:.4g}, plain mean {:.4g} max|.| {:.4g} (eps * S {:.4g}; bound on "
+        "the kernel's mean 4 eps * S)".format(*bias["kernel"], *bias["plain"], eps_S))
 
-    out = {}
+    # a yardstick only (the port never calls it): cuBLAS's full-f32 batched
+    # product of the cross term alone, TF32 off as the port pins it
+    cross = torch.empty((B, n1, n2), dtype=torch.float32, device=dev)
+    bmm_ms = cuda_ms(lambda: torch.bmm(din, djn.transpose(1, 2), out=cross), 5)
+    del cross
+    torch.cuda.empty_cache()
+    log("yardstick: torch.bmm of the f32 cross term alone at B={} n1={} n2={} (TF32 off): "
+        "{:.4f} ms".format(B, n1, n2, bmm_ms))
+
+    out = {"bmm_cross_f32_ms": bmm_ms, "single_splits": S_single, "d1_bias": bias}
     plain_rounds = 3
     cases = (
         ("nn2_batched_i8", lambda: nm.nn2_batched_i8(di, dj, li, hj, mi, mj, thr),
@@ -705,8 +744,7 @@ def check_nn2(ft, images, dev):
         ("nn2_batched", lambda: nm.nn2_batched(din, djn, li, hj, mi, mj, thr),
          lambda: nm.nn2_plain(din, djn, li, hj, mi, mj, thr), 10, mi, mj, 512,
          PEAK_TF32_TC_PER_S, err_f),
-        ("nn2_single", lambda: nm.nn2_single(dif[0], djf[0], li[0], hj[0], mi[0], mj[0],
-                                             float(thr[0])),
+        ("nn2_single", lambda: nm.nn2_single(dif[0], djf[0], li[0], hj[0], mi[0], mj[0], thr0),
          lambda: nm.nn2_plain(dif[:1], djf[:1], li[:1], hj[:1], mi[:1], mj[:1], thr[:1]), 50,
          mi[:1], mj[:1], 512, PEAK_TF32_TC_PER_S, 0.0),
     )
@@ -718,10 +756,16 @@ def check_nn2(ft, images, dev):
                      "ops": ops, "bytes": nbytes, "max_abs_err": err,
                      "tops": ops / ms / 1e9, "bound_share": bound_ms / ms,
                      "shape": {"B": int(m_i.shape[0]), "n1": n1, "n2": n2}}
+        floor = ""
+        if name != "nn2_batched_i8":
+            # the TF32 split runs three products: the least time of that design
+            floor_ms = 3 * ops / peak * 1e3
+            floor = ", 3x floor of the TF32 split {:.4f} ms ({:.1%} of it)".format(
+                floor_ms, floor_ms / ms)
         log("{}: kernel {:.4f} ms ({:.1f} TOP/s, {:.1%} of the bound), plain {:.4f} ms, bound "
-            "{:.4f} ms ({}; {:.3g} ops, {:.1f} MB)".format(
+            "{:.4f} ms ({}; {:.3g} ops, {:.1f} MB){}".format(
                 name, ms, ops / ms / 1e9, bound_ms / ms, plain_ms, bound_ms, bound_by, ops,
-                nbytes / 1e6))
+                nbytes / 1e6, floor))
     return out
 
 
@@ -892,6 +936,8 @@ def main():
         _build.sources(), build_s))
     ptxas = ptxas_summary(build_logs.get("nn2_match", ""))
     assert "nn2_i8_kernel" in ptxas, "no ptxas report of the int8 2-NN kernel"
+    for kernel in ("nn2_tf32_columns", "nn2_tf32_kernel", "nn2_merge_splits"):
+        assert kernel in ptxas, "no ptxas report of " + kernel
     # the Schur kernels at the main path's P = 3
     ptxas.update((k, v) for k, v in ptxas_summary(build_logs.get("schur_matvec", "")).items()
                  if "<" not in k or k.endswith("<3>"))

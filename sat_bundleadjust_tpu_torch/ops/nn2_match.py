@@ -20,12 +20,16 @@ Three entry points, as in the JAX package:
 * `nn2_single`      <- `pallas_2nn`: one pair with a scalar threshold,
   three (N1,) results; the f32 kernel with B = 1.
 
-CUDA tensors launch the kernels of `csrc/nn2_match.cu` (or raise): the int8
-entry point on the tensor cores (s8 `mma.sync`), the f32 ones on CUDA cores.
-CPU tensors run `nn2_plain`, the plain PyTorch version, which the kernels are
-held against. On integer descriptors every value after the cross term is an
-exact integer below 2^24 in f32, so kernels, plain version and JAX give the
-same bits. The gate is computed elementwise in the order
+CUDA tensors launch the kernels of `csrc/nn2_match.cu` (or raise), all on
+the tensor cores: the int8 entry point as s8 `mma.sync`, the f32 ones as
+TF32 `wgmma` with a three-product split (a = a_hi + a_lo; a.b ~
+a_hi.b_hi + a_hi.b_lo + a_lo.b_hi), their columns split over `S` slices of
+the grid where the pairs' row blocks alone would not fill the card
+(`column_splits`). CPU tensors run `nn2_plain`, the plain PyTorch version,
+which the kernels are held against. On integer descriptors every value
+after the cross term is an exact integer below 2^24 in f32 (and exact in
+TF32 up to 2047), so kernels, plain version and JAX give the same bits,
+whatever S. The gate is computed elementwise in the order
 ((l0*h0) + (l1*h1)) + (l2*h2) on both sides.
 """
 
@@ -42,7 +46,10 @@ PLAIN_ROWS = 1024
 _SIGNATURES = {
     "nn2_match_i8": (ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "nn2_match_i8_scratch_bytes": (ctypes.c_long, [ctypes.c_int] * 2),
-    "nn2_match_f32": (ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "nn2_match_f32": (ctypes.c_int,
+                      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "nn2_match_f32_scratch_bytes": (ctypes.c_long, [ctypes.c_int] * 2),
+    "nn2_match_f32_splits": (ctypes.c_int, [ctypes.c_int] * 4),
 }
 
 
@@ -132,17 +139,33 @@ def _lib():
     return _build.load("nn2_match", _SIGNATURES)
 
 
-def _launch(fn, buffers, B, N1, N2):
-    """Call the C entry point `fn` on device buffers, in its order."""
+def _launch(fn, buffers, *ints):
+    """Call the C entry point `fn` on device buffers and ints, in its order."""
     stream = torch.cuda.current_stream(buffers[0].device).cuda_stream
-    err = getattr(_lib(), fn)(*[t.data_ptr() for t in buffers], B, N1, N2, stream)
+    err = getattr(_lib(), fn)(*[t.data_ptr() for t in buffers], *ints, stream)
     if err != 0:
         raise RuntimeError("{} kernel launch failed: CUDA error {}".format(fn, err))
 
 
-def _launch_f32(args, B, N1, N2):
-    out = torch.empty((B, 3, N1), dtype=torch.float32, device=args[0].device)
-    _launch("nn2_match_f32", (*args, out), B, N1, N2)
+def column_splits(B, N1, N2, device):
+    """The number S of column splits the f32 kernel takes for B pairs of
+    N1 x N2 on `device`: about two waves of blocks, 1 once the pairs' row
+    blocks fill the card (csrc/nn2_match.cu, nn2_match_f32_splits)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return _lib().nn2_match_f32_splits(B, N1, N2, sms)
+
+
+def _launch_f32(args, B, N1, N2, splits=None):
+    """The f32 kernel with at most `splits` column splits (default:
+    column_splits for this card)."""
+    dev = args[0].device
+    S = column_splits(B, N1, N2, dev) if splits is None else splits
+    out = torch.empty((B, 3, N1), dtype=torch.float32, device=dev)
+    # each column tile's TF32 hi and lo and its records (sq_j, h_j), written by the first launch
+    scratch = torch.empty(_lib().nn2_match_f32_scratch_bytes(B, N2), dtype=torch.uint8, device=dev)
+    # the splits' partial (d1, d2, idx), merged by the last launch
+    part = torch.empty((S, B, 3, N1) if S > 1 else (0,), dtype=torch.float32, device=dev)
+    _launch("nn2_match_f32", (*args, out, scratch, part), B, N1, N2, S)
     return out
 
 
@@ -182,7 +205,7 @@ def nn2_batched_i8(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
 
 def nn2_batched(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
     """nn2_batched_i8 with f32 descriptors (the fallback for descriptors that
-    are not integers in 0..255). Each launch adds one to
+    are not integers in 0..255), on the TF32 split. Each launch adds one to
     nn2_batched.launches."""
     args = (desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr)
     out = _batched("nn2_batched", _launch_f32, torch.float32, args)
@@ -194,10 +217,11 @@ def nn2_batched(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
 def nn2_single(desc_i, desc_j, lines_i, hpts_j, valid_i, valid_j, epi_thr):
     """One pair: desc_i (N1, 128), desc_j (N2, 128) f32, lines_i (N1, 3),
     hpts_j (N2, 3), valid_* (N,) f32, epi_thr a float. Returns (d1 (N1,),
-    d2 (N1,), idx (N1,) int32). Runs the f32 kernel with B = 1; each launch
-    adds one to nn2_single.launches."""
+    d2 (N1,), idx (N1,) int32). Runs the f32 kernel with B = 1, its columns
+    split to fill the card; each launch adds one to nn2_single.launches."""
     dev = desc_i.device
-    thr = torch.tensor([float(epi_thr)], dtype=torch.float32, device=dev)
+    # a fill on the device: a copy from the host would wait for the stream
+    thr = torch.full((1,), float(epi_thr), dtype=torch.float32, device=dev)
     args = (desc_i[None], desc_j[None], lines_i[None], hpts_j[None],
             valid_i[None], valid_j[None], thr)
     out = _batched("nn2_single", _launch_f32, torch.float32, args)

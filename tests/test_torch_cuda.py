@@ -237,28 +237,126 @@ def test_nn2_kernels_match_plain(cuda, B, n1, n2, hi, empty_last):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,n1,n2,hi,dead_pair", [
+    (2, 131, 45, 256, False),    # ragged N1 and N2: no multiple of 16, 8 or the 32-column tile
+    (2, 70, 7, 256, False),      # N2 below one column tile
+    (2, 70, 0, 256, False),      # no column at all
+    (3, 301, 333, 2, True),      # binary descriptors, a pair with no valid row or column
+    (1, 1500, 3000, 256, False),  # one pair: the wrapper splits its columns
+])
+def test_nn2_f32_tensor_core_kernel_bits_do_not_depend_on_splits(cuda, B, n1, n2, hi, dead_pair):
+    """The f32 kernel (TF32 split on the tensor cores) against the plain
+    version on integer descriptors, bit for bit, at ragged and edge shapes:
+    through nn2_batched (the wrapper's own column split) and through the
+    private launch with S = 1, 2, 3 and 7 column splits, which must all give
+    the same bits."""
+    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(cuda, B, n1, n2, hi=hi, empty_last=dead_pair)
+    if dead_pair:
+        vi[-1] = 0.0
+    args = (d_i, d_j, li, hj, vi, vj, thr)
+    ref = nm.nn2_plain(*args)
+    before = nm.nn2_batched.launches
+    f = nm.nn2_batched(*args)
+    split = [nm._launch_f32(args, B, n1, n2, splits=S) for S in (1, 2, 3, 7)]
+    torch.cuda.synchronize()
+    assert nm.nn2_batched.launches == before + 1
+    assert torch.equal(f, ref)
+    for S, got in zip((1, 2, 3, 7), split):
+        assert torch.equal(got, ref), S
+    if dead_pair:
+        assert bool((ref[-1, :2] == nm.BIG).all()) and bool((ref[-1, 2] == 0).all())
+    if B == 1:
+        assert nm.column_splits(B, n1, n2, cuda) > 1
+    if n2:
+        assert int((ref[:, 0] < nm.BIG).sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N1,N2,sms,want", [
+    (45, 11000, 11000, 132, 1),   # slice C's largest chunk: the pairs fill the card
+    (1, 11000, 11000, 132, 3),    # one pair: 86 row blocks, three splits
+    (1, 100, 40, 132, 2),         # no more splits than column tiles
+    (2, 70, 0, 132, 1),           # no columns
+])
+def test_column_splits_fill_the_card(cuda, B, N1, N2, sms, want):
+    """The f32 kernel's column splits (nn2_match_f32_splits) aim at about two
+    waves of blocks on `sms` SMs, with no more splits than column tiles."""
+    assert nm._lib().nn2_match_f32_splits(B, N1, N2, sms) == want
+
+
+def _fractional_operands(device):
+    """_nn2_operands (3 pairs of 500 x 900) plus a uniform [0, 1) fraction
+    on every descriptor value."""
+    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(device, 3, 500, 900, seed=1)
+    g = torch.Generator(device).manual_seed(2)
+    d_i = (d_i + torch.rand(d_i.shape, generator=g, device=device)).contiguous()
+    d_j = (d_j + torch.rand(d_j.shape, generator=g, device=device)).contiguous()
+    return d_i, d_j, li, hj, vi, vj, thr
+
+
+@pytest.mark.cuda
 def test_nn2_f32_kernel_on_non_integer_descriptors(cuda):
     """The f32 kernel on descriptors with fractional parts. A distance is
     sq_i + sq_j - 2 cross, a difference of terms up to
-    S = max(sq_i) + max(sq_j) (~1.7e7 here, float32 ulp 1-2), and the kernel
+    S = max(sq_i) + max(sq_j) (~7.0e6 here, eps * S = 0.84), and the kernel
     sums the 128 products and squares in another order than the plain
     version's cuBLAS product and reductions: distances agree to 16 ulps of S
-    (measured: 2.0 against S ulp 2); the argmin may differ only on rows
-    whose two nearest columns lie within twice that tolerance (measured: 2
-    of 1500 rows)."""
-    d_i, d_j, li, hj, vi, vj, thr = _nn2_operands(cuda, 3, 500, 900, seed=1)
-    g = torch.Generator(cuda).manual_seed(2)
-    d_i = (d_i + torch.rand(d_i.shape, generator=g, device=cuda)).contiguous()
-    d_j = (d_j + torch.rand(d_j.shape, generator=g, device=cuda)).contiguous()
+    (measured on the TF32 tensor-core kernel: 4.5 against a tolerance of
+    13.4); the argmin may differ only on rows whose two nearest columns lie
+    within twice that tolerance (measured: 15 of 1500 rows, the bar's edge;
+    the descriptors repeat columns, so near ties are common)."""
+    d_i, d_j, li, hj, vi, vj, thr = _fractional_operands(cuda)
     got = nm.nn2_batched(d_i, d_j, li, hj, vi, vj, thr)
     ref = nm.nn2_plain(d_i, d_j, li, hj, vi, vj, thr)
     torch.cuda.synchronize()
     S = float((d_i * d_i).sum(-1).max() + (d_j * d_j).sum(-1).max())
     tol = 16 * torch.finfo(torch.float32).eps * S
-    assert float((got[:, :2] - ref[:, :2]).abs().max()) <= tol
+    err = float((got[:, :2] - ref[:, :2]).abs().max())
     moved = got[:, 2] != ref[:, 2]
+    print("non-integer descriptors: max|err| {} (16 ulp of S: {}), argmin moved in {} of {} "
+          "rows".format(err, tol, int(moved.sum()), moved.numel()))
+    assert err <= tol
     assert bool(((ref[:, 1] - ref[:, 0])[moved] <= 2 * tol).all())
     assert float(moved.float().mean()) < 0.01
+
+
+def _d1_error_to_exact(out, d_i, d_j):
+    """d1 of a (B, 3, N1) result minus the exact distance (float64, from the
+    float32 descriptors) of the row to the column in idx, over the rows with
+    a match."""
+    found = out[:, 0] < nm.BIG
+    j = out[:, 2].long()
+    d_at = torch.gather(d_j, 1, j[..., None].expand(-1, -1, d_j.shape[2]))
+    exact = ((d_i.double() - d_at.double()) ** 2).sum(-1)
+    return (out[:, 0].double() - exact)[found]
+
+
+@pytest.mark.cuda
+def test_nn2_f32_kernel_bias_against_exact_distances(cuda):
+    """The TF32 split's distances against exact ones. The tensor cores
+    truncate toward zero where they add, so on positive descriptors the
+    cross term comes out low and every distance high: a mean bias, where the
+    plain version's rounding errors have mean ~0. The mean must stay within
+    4 eps * S (S = max(sq_i) + max(sq_j)): above what two main chains of 8
+    k-steps give (1.5 eps * S here, 2.85 on slice C's SIFT descriptors in
+    chip_smoke.py), below the ~3x of one chain of 16; every error within
+    16 eps * S. Measured on these operands (744 rows with a match,
+    eps * S = 0.84): kernel mean +1.27, max |err| 2.71; plain version mean
+    -0.016, max |err| 3.04."""
+    d_i, d_j, li, hj, vi, vj, thr = _fractional_operands(cuda)
+    got = nm.nn2_batched(d_i, d_j, li, hj, vi, vj, thr)
+    ref = nm.nn2_plain(d_i, d_j, li, hj, vi, vj, thr)
+    torch.cuda.synchronize()
+    S = float((d_i * d_i).sum(-1).max() + (d_j * d_j).sum(-1).max())
+    eps = torch.finfo(torch.float32).eps
+    e_got, e_ref = _d1_error_to_exact(got, d_i, d_j), _d1_error_to_exact(ref, d_i, d_j)
+    print("d1 minus the exact distance: kernel mean {} max|err| {}; plain mean {} max|err| {}; "
+          "S {} (ulp {}), {} rows".format(
+              float(e_got.mean()), float(e_got.abs().max()), float(e_ref.mean()),
+              float(e_ref.abs().max()), S, eps * S, e_got.numel()))
+    assert e_got.numel() > 500
+    assert abs(float(e_got.mean())) <= 4 * eps * S
+    assert float(e_got.abs().max()) <= 16 * eps * S
 
 
 @pytest.mark.cuda

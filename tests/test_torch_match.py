@@ -14,6 +14,8 @@ evaluated elementwise in the kernels' order, so the port must give the same
 bits as JAX (Queue 2 of ROADMAP.md).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -293,6 +295,199 @@ def test_i8_tensor_core_schedule_equals_plain_and_jax(binary, gate):
         # the argmin of tied rows is not always in lane 0 of the quad
         tied = (plain[:2, 0] == plain[:2, 1]) & found
         assert len(np.unique((plain[:2, 2][tied].astype(int) % 8) // 2)) > 1
+
+
+# the f32 kernel's columns per tile (csrc/nn2_match.cu, kFTile)
+_F32_TILE = 32
+
+
+def _split_geometry(n2, S):
+    """(S', columns per split): at most S splits of whole column tiles, the
+    last one ragged and none empty, as nn2_match_f32 cuts them."""
+    n_tiles = -(-n2 // _F32_TILE)
+    if n_tiles == 0:
+        return 1, 0
+    per = -(-n_tiles // S)
+    return -(-n_tiles // per), per * _F32_TILE
+
+
+def _tf32(x):
+    """cvt.rna.tf32.f32 on the float32 bits (nearest, ties away from zero),
+    the low 13 bits cleared."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    r = np.where(np.isfinite(x), u + np.uint32(0x1000), u) & np.uint32(0xffffe000)
+    return r.astype(np.uint32).view(np.float32)
+
+
+def _tf32_cross(a, b):
+    """The f32 kernel's cross term a . b^T in its k order: a = a_hi + a_lo,
+    b = b_hi + b_lo (TF32 each); k-step s takes elements 8s .. 8s + 7, its
+    eight products summed exactly and added to its chain in f32: main
+    products of k-steps 0-7 in m0, of 8-15 in m1, the corrections a_hi.b_lo
+    then a_lo.b_hi in cc; cross = (m0 + m1) + cc. (The tensor cores round
+    where they add in their own way; on integer descriptors every sum is
+    exact and the model gives the kernel's bits.)"""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    m = [np.zeros((a.shape[0], b.shape[0]), np.float32) for _ in range(2)]
+    cc = np.zeros_like(m[0])
+    for s in range(16):
+        k = slice(8 * s, 8 * s + 8)
+        m[s // 8] = (m[s // 8] + a_hi[:, k].astype(np.float64) @ b_hi[:, k].T.astype(np.float64)
+                     ).astype(np.float32)
+        for x, y in ((a_hi, b_lo), (a_lo, b_hi)):
+            cc = (cc + x[:, k].astype(np.float64) @ y[:, k].T.astype(np.float64)).astype(np.float32)
+    return (m[0] + m[1]) + cc
+
+
+def _f32_tensor_core_schedule(d_i, d_j, li, hj, vi, vj, thr, S):
+    """The f32 CUDA kernel's order of work for one pair, in numpy float32:
+    the TF32 cross term (_tf32_cross), dist = max((sq_i + sq_j) - 2 cross, 0)
+    (+inf for invalid and padding columns), the columns cut into S splits of
+    whole 32-column tiles (_split_geometry). In each split each row's
+    columns are spread over the 4 lanes of a quad as the m16n8 accumulator
+    layout spreads them (lane t: columns 8n + 2t and 8n + 2t + 1); a lane
+    scans its columns in increasing order and evaluates the gate only for a
+    candidate, dist below its bound: the quad's second value Q at the start
+    of each tile, then the lane's d2 as it falls. The quad merges its lanes
+    (xor 1, then xor 2), and the splits' partials merge in increasing order."""
+    n1, n2 = d_i.shape[0], d_j.shape[0]
+    S_, per = _split_geometry(n2, S)
+    n2p = -(-n2 // _F32_TILE) * _F32_TILE
+    sq_i = (d_i.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    sq_j = np.full(n2p, np.inf, np.float32)
+    sq_j[:n2] = np.where(vj > 0, (d_j.astype(np.float64) ** 2).sum(1).astype(np.float32), np.inf)
+    cross = np.zeros((n1, n2p), np.float32)
+    cross[:, :n2] = _tf32_cross(d_i, d_j)
+    with np.errstate(invalid="ignore"):
+        dist = np.maximum((sq_i[:, None] + sq_j[None, :]) - np.float32(2) * cross, np.float32(0))
+    h = np.zeros((n2p, 3), np.float32)
+    h[:n2] = hj
+    t32 = np.float32(thr)
+    rhs = (t32 * t32) * (li[:, 0] * li[:, 0] + li[:, 1] * li[:, 1])
+    big = np.float32(nm.BIG)
+    lanes = np.arange(4)
+    parts = []
+    for z in range(S_):
+        d1 = np.full((n1, 4), big, np.float32)
+        d2 = np.repeat(np.where(vi > 0, big, -np.inf)[:, None], 4, 1).astype(np.float32)
+        idx = np.zeros((n1, 4), np.int64)
+        for c0 in range(z * per, min(n2p, (z + 1) * per), _F32_TILE):
+            q1, bound = d1, d2
+            for x in (1, 2):
+                q1, bound, _ = _merge(q1, bound, idx, q1[:, lanes ^ x], bound[:, lanes ^ x], idx)
+            bound = bound.copy()
+            for c in range(c0, c0 + _F32_TILE):
+                t_ = (c % 8) // 2
+                dc = dist[:, c]
+                cand = dc < bound[:, t_]
+                if not cand.any():
+                    continue
+                num = (li[:, 0] * h[c, 0] + li[:, 1] * h[c, 1]) + li[:, 2] * h[c, 2]
+                cand &= num * num <= rhs
+                first = cand & (dc < d1[:, t_])
+                second = cand & ~first
+                d2[first, t_] = d1[first, t_]
+                d1[first, t_] = dc[first]
+                idx[first, t_] = c
+                d2[second, t_] = dc[second]
+                bound[cand, t_] = np.minimum(bound[cand, t_], d2[cand, t_])
+        for x in (1, 2):
+            d1, d2, idx = _merge(d1, d2, idx, d1[:, lanes ^ x], d2[:, lanes ^ x], idx[:, lanes ^ x])
+        ok = d2[:, 0] != -np.inf
+        parts.append((np.where(ok, d1[:, 0], big), np.where(ok, d2[:, 0], big),
+                      np.where(ok, idx[:, 0], 0)))
+    a1, a2, ia = parts[0]
+    for b1, b2, ib in parts[1:]:
+        a1, a2, ia = _merge(a1, a2, ia, b1, b2, ib)
+    return np.stack([a1, a2, ia.astype(np.float32)]).astype(np.float32)
+
+
+def _f32_schedule_problem(kind, gate, seed=31, n1=45, n2=301):
+    """Three pairs with ragged n1 and n2 (n2 ends inside the tenth 32-column
+    tile): pair 0 with invalid rows and columns, pair 1 with equal minima in
+    other tiles, lanes and splits, pair 2 with no valid column. Descriptors
+    from {0, 1} (ties the rule), 0..255, or 0..255 plus a fraction."""
+    rng = np.random.RandomState(seed)
+    hi = 2 if kind == "desc01" else 256
+    d_i = rng.randint(0, hi, (3, n1, 128)).astype(np.float32)
+    d_j = rng.randint(0, hi, (3, n2, 128)).astype(np.float32)
+    d_j[:, 20:40] = d_i[:, :20]
+    d_j[1, 150:300] = d_j[1, 0:150]  # shift 150: other tiles, lanes and splits
+    if kind == "fraction":
+        d_i += rng.rand(*d_i.shape).astype(np.float32)
+        d_j += rng.rand(*d_j.shape).astype(np.float32)
+    li = np.concatenate([rng.randn(3, n1, 2), -300.0 * rng.rand(3, n1, 1)], 2).astype(np.float32)
+    hj = np.concatenate([rng.rand(3, n2, 2) * 400, np.ones((3, n2, 1))], 2).astype(np.float32)
+    vi = np.ones((3, n1), np.float32)
+    vi[0, :3] = vi[1, -2:] = 0.0
+    vj = (rng.rand(3, n2) > 0.1).astype(np.float32)
+    vj[2] = 0.0
+    thr = np.full(3, 8.0 if gate else 1e9, np.float32)
+    return d_i, d_j, li, hj, vi, vj, thr
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_jax(kind, gate):
+    """JAX's pallas_2nn_batched and pallas_2nn (pair 0), interpret mode."""
+    d_i, d_j, li, hj, vi, vj, thr = _f32_schedule_problem(kind, gate)
+    ops = [jnp.asarray(a) for a in (d_i, d_j, li, hj, vi, vj, thr)]
+    batched = np.asarray(pallas_2nn_batched(*ops, interpret=True))
+    single = pallas_2nn(*[jnp.asarray(a[0]) for a in (d_i, d_j, li, hj, vi, vj)], float(thr[0]),
+                        interpret=True)
+    return batched, np.stack([np.asarray(single[0]), np.asarray(single[1]),
+                              np.asarray(single[2]).astype(np.float32)])
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("gate", [False, True], ids=["gate_off", "gate_8px"])
+@pytest.mark.parametrize("kind", ["desc01", "desc0_255"])
+def test_f32_tensor_core_schedule_bit_identical_to_plain_and_jax(kind, gate, S):
+    """The f32 kernel's schedule (TF32 split products in the kernel's k
+    order, the f32 epilogue pruned by the quad's bound, S column splits of
+    whole tiles, the last ragged, merged in order) on integer descriptors
+    equals the plain version, JAX's pallas_2nn_batched and, for pair 0,
+    JAX's pallas_2nn (interpret mode) bit for bit, whatever S."""
+    d_i, d_j, li, hj, vi, vj, thr = _f32_schedule_problem(kind, gate)
+    assert np.array_equal(_tf32(d_i), d_i) and not _tf32(d_i - _tf32(d_i)).any()
+    model = np.stack([_f32_tensor_core_schedule(d_i[b], d_j[b], li[b], hj[b], vi[b], vj[b],
+                                                thr[b], S) for b in range(3)])
+    plain = nm.nn2_plain(_t(d_i), _t(d_j), _t(li), _t(hj), _t(vi), _t(vj), _t(thr)).numpy()
+    jax_batched, jax_single = _f32_jax(kind, gate)
+    np.testing.assert_array_equal(model, plain)
+    np.testing.assert_array_equal(model, jax_batched)
+    np.testing.assert_array_equal(model[0], jax_single)
+    # the problem exercises what it claims to
+    n_tiles = -(-d_j.shape[1] // _F32_TILE)
+    S_, per = _split_geometry(d_j.shape[1], S)
+    assert S_ == S and (S - 1) * per < n_tiles * _F32_TILE <= S * per
+    found = plain[:2, 0] < nm.BIG
+    assert found.sum() > 10
+    assert np.all(plain[2, 0] == nm.BIG) and np.all(plain[2, 2] == 0)
+    assert np.all(plain[0, 0, :3] == nm.BIG)
+    if kind == "desc01":
+        assert (plain[:2, 0] == plain[:2, 1]).mean() > 0.3  # ties are common
+        tied = (plain[:2, 0] == plain[:2, 1]) & found
+        assert len(np.unique((plain[:2, 2][tied].astype(int) % 8) // 2)) > 1
+
+
+@pytest.mark.parametrize("S", [1, 3])
+def test_f32_tensor_core_schedule_on_non_integer_descriptors(S):
+    """On descriptors with fractional parts the split keeps the error near
+    f32's: the model's distances are within 16 ulp of S = max sq_i + max
+    sq_j of JAX's pallas_2nn_batched (interpret mode), and an argmin moves
+    only between columns within twice that of each other."""
+    d_i, d_j, li, hj, vi, vj, thr = _f32_schedule_problem("fraction", False)
+    model = np.stack([_f32_tensor_core_schedule(d_i[b], d_j[b], li[b], hj[b], vi[b], vj[b],
+                                                thr[b], S) for b in range(3)])
+    want, _ = _f32_jax("fraction", False)
+    Smax = float((d_i.astype(np.float64) ** 2).sum(-1).max()
+                 + (d_j.astype(np.float64) ** 2).sum(-1).max())
+    tol = 16 * np.finfo(np.float32).eps * Smax
+    assert np.abs(model[:, :2] - want[:, :2]).max() <= tol
+    moved = model[:, 2] != want[:, 2]
+    assert np.all((want[:, 1] - want[:, 0])[moved] <= 2 * tol)
+    assert (model[:2, 0] < nm.BIG).sum() > 80  # every valid row of pairs 0 and 1
 
 
 def test_gate_is_elementwise_and_one_sided():
