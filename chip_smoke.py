@@ -10,7 +10,8 @@ no result line, where CUDA is not available. It
      that TF32 is off;
   2. builds every CUDA kernel of the port from csrc/ (one nvcc per source,
      all at once) and prints the build time and ptxas's registers, spills
-     and shared memory of the 2-NN kernels and of the Schur kernels at P = 3;
+     and shared memory of the 2-NN kernels and of the Schur kernels at
+     P = 3, 8 and 11;
   3. holds the Schur operator kernel against its plain PyTorch version and
      its "aos" form at the operands of the first LM step of each problem
      below (slices A, B and C), checks that two calls of the function and
@@ -53,6 +54,22 @@ no result line, where CUDA is not available. It
      .rpc_adj files whose re-read RPCs take the reprojection error of the
      tracks from above 0.5 px to below 0.3 px; it prints the wall time of
      each stage and the refit's fit error per camera;
+ 13. slice E: a time series of 3 dates a week apart x 4 views of
+     2000x2000 px (RPCs fitted to satellite pinholes 100 km off nadir,
+     +-3 px biases, written to disk) through the CLI in ba_sequential and
+     then in ba_global (n_dates 1, FT_save True): 12 .rpc_adj files per
+     mode, the second and third sequential dates run with the 4 adjusted
+     cameras of the date before (n_adj 4), and slice D's reprojection bar
+     through the re-read .rpc_adj files for every date; wall per stage;
+ 14. slice F: the matrix camera models' BA stage: perspective cameras with
+     R, T, K and COMMON_K (P = 11) at slice B's scale and affine ones
+     (P = 8) at slice A's, each solved on the card with the Schur kernel
+     and then with its plain version (mean errors within 1e-3 px, from
+     above 1 px to below 0.1 px, the optimized cameras' K equal to 1e-9
+     relative), the Schur kernel checked and timed at P = 11 and 8; then
+     the CLI with cam_model "perspective" and R, T, K, COMMON_K on slice
+     E's first date, which must write P_init/ (asked of the pipeline),
+     P_adj/ and .rpc_adj files that hold slice D's bar;
 
 and ends with a JSON line per kernel ({"kernels": [...]}) and the result
 line {"ok": true, "device": {...}}. Kernel launch counters are set to 0
@@ -64,8 +81,10 @@ kernel.
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth; f32 and f64 rates
@@ -90,6 +109,21 @@ SLICE_C_REPROJ_BEFORE_MIN = 0.5
 SLICE_C_REPROJ_AFTER_MAX = 0.3
 # slice D: the CLI's defaults plus these keys, on slice C's frames
 SLICE_D_CONFIG = {"rpc_src": "txt", "FT_kp_max": 40000, "FT_save": True, "save_figures": False}
+# slice E: a time series of 3 dates a week apart x 4 views of 2000x2000 px,
+# rendered by slice C's renderer through RPCs fitted to satellite pinholes
+# 100 km off nadir (3 m/px), +-3 px RPC biases (camera 0 of date 0 the
+# anchor); the CLI in ba_sequential and then ba_global, n_dates 1
+SLICE_E = {"dates": 3, "views": 4, "h": 2000, "w": 2000, "alt": 50.0, "n_tex": 2048,
+           "tex_octaves": 5, "bias_px": 3.0, "gsd": 3.0, "off_nadir_m": 1e5}
+SLICE_E_CONFIG = dict(SLICE_D_CONFIG, n_dates=1)
+# slice F: the matrix camera models' BA stage: perspective R, T, K with
+# COMMON_K (P = 11) at slice B's scale, affine R, T, K (P = 8) at slice A's
+SLICE_F_PERSPECTIVE = {"n_cam": 1000, "n_pts": 200000, "obs_per_pt": 4}
+SLICE_F_AFFINE = {"n_cam": 50, "n_pts": 20000, "obs_per_pt": 4}
+SLICE_F_PARAMS = ["R", "T", "K", "COMMON_K"]
+SLICE_F_MAX_ITER = 30
+SLICE_F_REPROJ_BEFORE_MIN = 1.0
+SLICE_F_REPROJ_AFTER_MAX = 0.1
 
 
 def log(*args):
@@ -136,17 +170,19 @@ def schur_operands(p, solver, lam=1e-4):
     return W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam
 
 
-def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2):
+def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2, spare=8):
     """Device time per call of a bound Schur operator from the profiler's
-    kernel spans (by kernel name): `warm` calls and a pause, then `reps`
-    timed ones. The profiler's device tracing can miss the first calls of
-    a window (2 spans of 406 in most runs on the H100, 279 of 406 in one),
-    so only the spans after the pause (the last gap of at least half of it
-    between two spans on the device's clock) are read, and each kernel of
-    KERNEL_NAMES must show exactly `reps` of them: a renamed kernel cannot
-    read as 0. A window that missed spans is taken again, up to `tries`
-    windows. Returns (ms per call, the union of the kernels' spans;
-    {kernel: ms per call}; spans seen)."""
+    kernel spans (by kernel name): `warm` calls and a pause, then `spare`
+    calls and `reps` timed ones. The profiler's device tracing can miss the
+    first calls of a window (2 spans of 406 in most runs on the H100, 279
+    of 406 in one) and the first calls after the pause (4 spans, every
+    window of one shape), so only the spans after the pause (the last gap
+    of at least half of it between two spans on the device's clock) are
+    read, the last reps * kernels of them are the timed calls', and each
+    kernel of KERNEL_NAMES must show exactly `reps` spans among those: a
+    renamed kernel cannot read as 0. A window that missed spans is taken
+    again, up to `tries` windows. Returns (ms per call, the union of the
+    kernels' spans; {kernel: ms per call}; spans seen)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -160,7 +196,7 @@ def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2):
                 op(x)
             torch.cuda.synchronize()
             time.sleep(pause_s)
-            for _ in range(reps):
+            for _ in range(spare + reps):
                 op(x)
             torch.cuda.synchronize()
         _, _, kern = device_busy(label, prof)
@@ -171,7 +207,7 @@ def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2):
             if e.time_range.start - end >= pause_s * 0.5e6:
                 first = i
             end = e.time_range.end if i == 0 else max(end, e.time_range.end)
-        ours = ours[first:]
+        ours = ours[first:][-reps * len(smv.KERNEL_NAMES):]
         seen = {n: sum(n in e.name for e in ours) for n in smv.KERNEL_NAMES}
         if all(c == reps for c in seen.values()):
             break
@@ -776,7 +812,7 @@ def ptxas_summary(log_text):
 
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur)_[a-z0-9_]+?)(ILi(\d)E)?E",
+        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur)_[a-z0-9_]+?)(ILi(\d+)E)?E",
                       line)
         if m:
             name = m.group(1) + ("<{}>".format(m.group(3)) if m.group(3) else "")
@@ -898,6 +934,225 @@ def slice_d(dev, counters, images):
             "reproj_before": err_before, "reproj_after": err_after, "rpc_adj_files": len(adj)}
 
 
+def render_scene_e(dev, img_dir):
+    """Slice E's frames, written to img_dir as .tif with their biased RPCs
+    as .rpc: for each date d and view k a satellite pinhole
+    off_nadir_m off nadir at azimuth k * 90 + d * 29 deg, the RPC fitted
+    to it (demo.pinhole_rpc), the view rendered through that RPC by slice
+    C's renderer; names YYYYMMDD_HHMMSS_viewK, dates a week apart. Returns
+    the seconds taken."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from sat_bundleadjust_tpu_torch.models.rpc import write_rpc_file
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    e = SLICE_E
+    t0 = time.time()
+    rpcs, names = [], []
+    for d in range(e["dates"]):
+        for k in range(e["views"]):
+            a = 2 * np.pi * k / e["views"] + 0.5 * d
+            P = demo.satellite_pinhole(view=(e["off_nadir_m"] * np.cos(a),
+                                             e["off_nadir_m"] * np.sin(a)),
+                                       gsd=e["gsd"], img_halfsize=(e["w"] / 2, e["h"] / 2))
+            rpcs.append(demo.pinhole_rpc(P))
+            names.append("202004{:02d}_1514{:02d}_view{}".format(13 + 7 * d, 10 + k,
+                                                                 e["views"] * d + k))
+    ims, _ = demo.render_synthetic_images(h=e["h"], w=e["w"], seed=0, alt=e["alt"],
+                                          n_tex=e["n_tex"], tex_octaves=e["tex_octaves"],
+                                          device=dev, rpcs=rpcs)
+    rng = np.random.RandomState(2)
+    for i, (im, rpc, name) in enumerate(zip(ims, rpcs, names)):
+        bias = np.zeros(2) if i == 0 else rng.uniform(-e["bias_px"], e["bias_px"], 2)
+        Image.fromarray((im * 255).astype(np.uint8)).save(os.path.join(img_dir, name + ".tif"))
+        write_rpc_file(rpc._replace(col_offset=rpc.col_offset + bias[0],
+                                    row_offset=rpc.row_offset + bias[1]),
+                       os.path.join(img_dir, name + ".rpc"))
+    return time.time() - t0
+
+
+def run_cli(root, img_dir, name, counters, **config):
+    """cli.main([config, "--verbose"]) in process, the counters set to 0
+    just before and read just after. Returns (scene, wall s, launches,
+    the ba_method directory)."""
+    import os
+
+    import torch
+
+    from sat_bundleadjust_tpu_torch import cli
+
+    cfg = dict(config, geotiff_dir=img_dir, rpc_dir=img_dir,
+               output_dir=os.path.join(root, "out_" + name))
+    cfg_path = os.path.join(root, "config_{}.json".format(name))
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scene = cli.main([cfg_path, "--verbose"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k.__name__: k.launches for k in counters}
+    return scene, wall, launches, os.path.join(cfg["output_dir"], cfg.get("ba_method",
+                                                                         "ba_bruteforce"))
+
+
+def stage_line(stages):
+    order = ["scene_load_s", "footprints_s", "cameras_s", "tracks_s", "triangulation_s",
+             "selection_s", "soft_l1_s", "outliers_s", "l2_s", "refit_s", "writes_s"]
+    return "; ".join("{} {:.3f} s".format(k[:-2], stages[k]) for k in order if k in stages)
+
+
+def slice_e(dev, counters, root, img_dir):
+    """The time series through the CLI: ba_sequential, then ba_global."""
+    import glob
+    import os
+
+    e = SLICE_E
+    n_img = e["dates"] * e["views"]
+    out = {}
+    for mode in ("ba_sequential", "ba_global"):
+        scene, wall, launches, ba_dir = run_cli(root, img_dir, mode, counters,
+                                                ba_method=mode, **SLICE_E_CONFIG)
+        adj = glob.glob(os.path.join(ba_dir, "rpcs_adj", "*.rpc_adj"))
+        if mode == "ba_sequential":
+            st = scene.date_stats
+            rounds = [r for date in st["ba_rounds"] for r in date]
+            before, after = st["init_e"], st["reproj_after"]
+            for d, (stages, ft) in enumerate(zip(st["timing"], st["ft_timing"])):
+                log("slice E {} date {} (n_adj {}): {}; tracks front end {}".format(
+                    mode, d + 1, st["n_adj"][d], stage_line(stages), "; ".join(
+                        "{} {:.3f} s".format(k[:-2], v) for k, v in ft.items())))
+            assert st["n_adj"] == [0] + [e["views"]] * (e["dates"] - 1), st["n_adj"]
+            n_ply = len(glob.glob(os.path.join(ba_dir, "pts3d_adj", "*_pts3d_adj.ply")))
+            assert n_ply == e["dates"], n_ply
+        else:
+            pipe = scene.ba_pipeline
+            rounds = pipe.ba_rounds
+            b, a = scene.compute_reprojection_error_before_and_after_bundle_adjust()
+            before, after = [b], [a]
+            stages = dict(scene.timing)
+            stages.update(pipe.timing)
+            log("slice E {}: {}; tracks front end {}".format(mode, stage_line(stages), "; ".join(
+                "{} {:.3f} s".format(k[:-2], v) for k, v in pipe.ft_timing.items())))
+        matvecs = sum(r["matvecs"] for r in rounds)
+        log("slice E {}: CLI {:.3f} s; {} .rpc_adj; reprojection through the re-read .rpc_adj "
+            "{} -> {} px; LM rounds {}; kernel launches {} ({} matvecs)".format(
+                mode, wall, len(adj), ["{:.4f}".format(v) for v in before],
+                ["{:.4f}".format(v) for v in after],
+                [(r["iterations"], r["matvecs"]) for r in rounds], launches, matvecs))
+        assert len(adj) == n_img, len(adj)
+        assert launches["nn2_batched_i8"] > 0, launches
+        assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
+        assert launches["schur_wz"] == matvecs > 0, (launches, matvecs)
+        assert min(before) > SLICE_C_REPROJ_BEFORE_MIN, before
+        assert max(after) < SLICE_C_REPROJ_AFTER_MAX, after
+        out[mode] = {"cli_s": wall, "launches": launches, "matvecs": matvecs,
+                     "reproj_before": before, "reproj_after": after,
+                     "rounds": [(r["iterations"], r["matvecs"]) for r in rounds],
+                     "n_adj": scene.date_stats["n_adj"] if mode == "ba_sequential" else [0]}
+    return out
+
+
+def matrix_solves(tag, cam_model, size, dev, counters, kernels):
+    """A matrix-model scene (demo.make_matrix_scene, 0.05 px noise) with
+    R, T, K and COMMON_K, solved on the card with the kernel as the CG
+    operator (the main path; counted) and then with its plain version."""
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ba.params import BAParams
+    from sat_bundleadjust_tpu_torch.ba.solver import BASolver
+    from sat_bundleadjust_tpu_torch.ops import lm
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    t0 = time.time()
+    s = demo.make_matrix_scene(cam_model, n_views=8, noise_px=0.05, seed=0, **size)
+    p = BAParams.from_obs_table(s["pts_ind"], s["cam_ind"], s["pts2d"], s["pts0"],
+                                s["cameras_init"], cam_model, s["camera_centers"], [],
+                                {"verbose": False, "correction_params": SLICE_F_PARAMS})
+    solver = BASolver(p, device=dev)
+    torch.cuda.synchronize()
+    log("slice F {}: {} cams, {} tracks, {} obs, P = {} ({} of K, COMMON_K), set-up {:.2f} s".format(
+        tag, p.n_cam, p.n_pts, p.n_obs, p.n_params, p.n_params_k, time.time() - t0))
+    kernels["F " + tag] = check_schur_wz("slice F " + tag, p, solver)
+    ls = {"max_iter": SLICE_F_MAX_ITER}
+    for k in counters:
+        k.launches = 0
+    cam, _, e1, rec = solve_round(solver, ls, "slice F {} L2, kernel".format(tag))
+    launches = {k.__name__: k.launches for k in counters}
+    # the same solve with the plain operator: the solver's config with
+    # matvec "plain"
+    t0 = time.time()
+    cfg = solver.config(ls)._replace(matvec="plain")
+    _, _, info_p = lm.solve(solver.residual_fn, solver.jac_fn,
+                            torch.as_tensor(p.opt_block(), device=dev),
+                            torch.as_tensor(p.pts3d, device=dev), solver.prob, cfg)
+    e1_p = info_p["err_fin"]
+    torch.cuda.synchronize()
+    plain_s = time.time() - t0
+    k0 = p.n_params - p.n_params_k
+    K = cam[:, k0:p.n_params].cpu().numpy()
+    spread = float(np.abs(K - K[0]).max() / np.abs(K[0]).max())
+    gap = abs(float(np.mean(e1)) - float(np.mean(e1_p)))
+    log("slice F {}: plain operator {} LM iterations in {:.3f} s to {:.5f} px (kernel {:.5f}: "
+        "gap {:.2e} px); optimized cameras' K spread {:.2e} relative; kernel launches {}".format(
+            tag, info_p["iterations"], plain_s, float(np.mean(e1_p)), float(np.mean(e1)), gap,
+            spread, launches))
+    assert launches["schur_wz"] == rec["matvecs"] > 0, launches
+    assert rec["reproj_before_mean"] > SLICE_F_REPROJ_BEFORE_MIN, rec["reproj_before_mean"]
+    assert rec["reproj_after_mean"] < SLICE_F_REPROJ_AFTER_MAX, rec["reproj_after_mean"]
+    assert gap <= 1e-3, gap
+    assert spread <= 1e-9, spread
+    return {"P": p.n_params, "kernel": rec, "plain": {"iterations": info_p["iterations"],
+            "wall_s": plain_s, "reproj_after_mean": float(np.mean(e1_p))},
+            "gap_px": gap, "k_spread": spread, "launches": launches}
+
+
+def slice_f(dev, counters, kernels, root, img_dir):
+    """The matrix camera models: the BA stage at P = 11 and P = 8, then the
+    CLI with perspective cameras on slice E's first date."""
+    import glob
+    import os
+
+    out = {"perspective": matrix_solves("perspective", "perspective", SLICE_F_PERSPECTIVE, dev,
+                                        counters, kernels),
+           "affine": matrix_solves("affine", "affine", SLICE_F_AFFINE, dev, counters, kernels)}
+    scene, wall, launches, ba_dir = run_cli(
+        root, img_dir, "perspective", counters, cam_model="perspective",
+        correction_params=SLICE_F_PARAMS, timeline_indices=[0], **SLICE_D_CONFIG)
+    pipe = scene.ba_pipeline
+    # the JAX package's run writes P_adj/ only; P_init/ is a method of the
+    # pipeline that neither package's run calls
+    pipe.save_initial_matrices()
+    files = {d: len(glob.glob(os.path.join(ba_dir, d, "*"))) for d in ("P_init", "P_adj", "rpcs_adj")}
+    before, after = scene.compute_reprojection_error_before_and_after_bundle_adjust()
+    matvecs = sum(r["matvecs"] for r in pipe.ba_rounds)
+    stages = dict(scene.timing)
+    stages.update(pipe.timing)
+    log("slice F CLI (perspective, {}, date 1): {}; CLI {:.3f} s; files {}; P = {}; reprojection "
+        "through the re-read .rpc_adj {:.4f} -> {:.4f} px; refit fit error max {} px; LM rounds "
+        "{}; kernel launches {} ({} matvecs)".format(
+            SLICE_F_PARAMS, stage_line(stages), wall, files, pipe.ba_params.n_params, before,
+            after, ["{:.3g}".format(v) for v in pipe.refit_stats["fit_error_max"]],
+            [(r["iterations"], r["matvecs"]) for r in pipe.ba_rounds], launches, matvecs))
+    n = SLICE_E["views"]
+    assert files == {"P_init": n, "P_adj": n, "rpcs_adj": n}, files
+    assert launches["nn2_batched_i8"] > 0, launches
+    assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
+    assert launches["schur_wz"] == matvecs > 0, (launches, matvecs)
+    assert before > SLICE_C_REPROJ_BEFORE_MIN, before
+    assert after < SLICE_C_REPROJ_AFTER_MAX, after
+    out["cli"] = {"cli_s": wall, "stages_s": stages, "launches": launches, "matvecs": matvecs,
+                  "reproj_before": before, "reproj_after": after, "files": files,
+                  "fit_error_max": pipe.refit_stats["fit_error_max"]}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full record as JSON to this file")
@@ -938,10 +1193,13 @@ def main():
     assert "nn2_i8_kernel" in ptxas, "no ptxas report of the int8 2-NN kernel"
     for kernel in ("nn2_tf32_columns", "nn2_tf32_kernel", "nn2_merge_splits"):
         assert kernel in ptxas, "no ptxas report of " + kernel
-    # the Schur kernels at the main path's P = 3
+    # the Schur kernels at the P the main path runs: 3 (rpc R), 8 (affine
+    # R T K), 11 (perspective R T K)
     ptxas.update((k, v) for k, v in ptxas_summary(build_logs.get("schur_matvec", "")).items()
-                 if "<" not in k or k.endswith("<3>"))
-    assert "schur_cameras<3>" in ptxas, "no ptxas report of the Schur camera kernel"
+                 if "<" not in k or k.endswith(("<3>", "<8>", "<11>")))
+    for P in (3, 8, 11):
+        for kernel in ("schur_points", "schur_cameras"):
+            assert "{}<{}>".format(kernel, P) in ptxas, "no ptxas report of {}<{}>".format(kernel, P)
     for name, line in ptxas.items():
         log("ptxas {}: {}".format(name, line))
 
@@ -960,6 +1218,19 @@ def main():
     rec["sift_device_check"] = sift_device_check(dev)
     rec["slice_d"] = slice_d(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz],
                              images)
+    del images
+    counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz]
+    with tempfile.TemporaryDirectory(prefix="slice_e_") as root:
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir)
+        render_s = render_scene_e(dev, img_dir)
+        log("slice E: {} dates x {} views of {}x{} px rendered through pinhole-fitted RPCs and "
+            "written in {:.2f} s".format(SLICE_E["dates"], SLICE_E["views"], SLICE_E["h"],
+                                         SLICE_E["w"], render_s))
+        rec["slice_e"] = slice_e(dev, counters, root, img_dir)
+        rec["slice_f"] = slice_f(dev, counters, kernels, root, img_dir)
+    rec["schur_wz"].update({"F perspective": kernels["F perspective"],
+                            "F affine": kernels["F affine"]})
     rec["total_s"] = time.time() - t_start
     log("total {:.1f} s".format(rec["total_s"]))
     if args.out:
@@ -968,22 +1239,30 @@ def main():
 
     b = kernels["B"]
     other = "; ".join(
-        "slice {}: ms (device) {:.5f}, op_wall_ms {:.5f}, wall_ms {:.5f}, plain_ms {:.5f}, "
-        "bound_ms {:.5f}".format(k, r["device_ms"], r["op_wall_ms"], r["wall_ms"], r["plain_ms"],
-                                 r["bound_ms"])
-        for k, r in (("A", kernels["A"]), ("C", c["schur_wz"])))
+        "slice {} (P = {}): ms (device) {:.5f}, op_wall_ms {:.5f}, wall_ms {:.5f}, plain_ms "
+        "{:.5f}, bound_ms {:.5f}".format(k, r["shape"]["P"], r["device_ms"], r["op_wall_ms"],
+                                         r["wall_ms"], r["plain_ms"], r["bound_ms"])
+        for k, r in rec["schur_wz"].items() if k != "B")
+    main_path = [rec["slice_a"]["launches"]["schur_wz"], rec["slice_b"]["launches"]["schur_wz"],
+                 c["launches"]["schur_wz"], rec["slice_d"]["launches"]["schur_wz"],
+                 rec["slice_e"]["ba_sequential"]["launches"]["schur_wz"],
+                 rec["slice_e"]["ba_global"]["launches"]["schur_wz"],
+                 rec["slice_f"]["perspective"]["launches"]["schur_wz"],
+                 rec["slice_f"]["affine"]["launches"]["schur_wz"],
+                 rec["slice_f"]["cli"]["launches"]["schur_wz"]]
     entries = [{
         "name": "schur_wz", "route": "cuda",
         "source": "sat_bundleadjust_tpu_torch/csrc/schur_matvec.cu",
         "replaces": "sat_bundleadjust_tpu/ops/pallas_matvec.py:263",
-        "launches": (rec["slice_a"]["launches"]["schur_wz"] + rec["slice_b"]["launches"]["schur_wz"]
-                     + c["launches"]["schur_wz"] + rec["slice_d"]["launches"]["schur_wz"]),
+        "launches": sum(main_path),
+        "p_values": sorted({r["shape"]["P"] for r in rec["schur_wz"].values()}),
         "max_abs_err": max(r["max_abs_err"] for r in rec["schur_wz"].values()),
         "ms": b["device_ms"], "op_wall_ms": b["op_wall_ms"], "wall_ms": b["wall_ms"],
         "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
         "library_ms": None,
-        "at": "slice B shape (M=1000, K=800000), ms = device time, op_wall_ms through the "
-              "bound operator; " + other,
+        "at": "slice B shape (M=1000, K=800000, P=3), ms = device time, op_wall_ms through "
+              "the bound operator; launches by slice A, B, C, D, E sequential, E global, "
+              "F perspective, F affine, F CLI {}; ".format(main_path) + other,
     }]
     replaces = {"nn2_batched_i8": "sat_bundleadjust_tpu/ops/pallas_match.py:240",
                 "nn2_batched": "sat_bundleadjust_tpu/ops/pallas_match.py:294",
@@ -992,7 +1271,10 @@ def main():
         k = rec["nn2"][name]
         entries.append({
             "name": name, "route": "cuda", "source": "sat_bundleadjust_tpu_torch/csrc/nn2_match.cu",
-            "replaces": where, "launches": c["launches"][name] + rec["slice_d"]["launches"][name],
+            "replaces": where,
+            "launches": (c["launches"][name] + rec["slice_d"]["launches"][name]
+                         + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
+                         + rec["slice_f"]["cli"]["launches"][name]),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,

@@ -1,30 +1,67 @@
-"""Bundle adjustment parameterization (rpc camera model).
+"""Bundle adjustment parameterization.
 
 Counterpart of `sat_bundleadjust_tpu/ba/params.py`. Turns the pipeline's
-problem description (correspondence matrix C, initial tie points, RPC
-cameras) into the flat observation table the solver consumes, and back.
-This is host-side bookkeeping in numpy; the solver moves what it needs to
-the device.
+problem description (correspondence matrix C, initial tie points, cameras)
+into the flat observation table the solver consumes, and back. This is
+host-side bookkeeping in numpy; the solver moves what it needs to the
+device.
 
-Camera parameter layout (rpc): [euler (3), T (3), C (3)] — a corrective
-rotation and translation about the fixed camera center C.
+Camera parameter layouts per model:
+  rpc:         [euler (3), T (3), C (3)]                (9): a corrective
+               rotation and translation about the fixed camera center C;
+  affine:      [euler (3), T (2), fx, fy, skew]         (8);
+  perspective: [euler (3), T (3), fx, fy, skew, cx, cy] (11).
+The optimized prefix holds R, then T, then K, as correction_params asks.
 """
 
 import numpy as np
+import torch
 
+from sat_bundleadjust_tpu_torch.models import cameras as cam_utils
+from sat_bundleadjust_tpu_torch.models.rotations import euler_angles_from_R, euler_angles_to_R
 from sat_bundleadjust_tpu_torch.models.rpc import stack_rpcs
-
-_MATRIX_MODELS_TODO = (
-    "cam_model {!r} is not ported yet: the affine and perspective camera models "
-    "come in a later slice of the port (see ROADMAP.md)"
-)
 
 
 def load_cam_params_from_camera(camera, camera_center, cam_model):
-    """Per-camera parameter vector: the rpc correction starts at identity."""
-    if cam_model != "rpc":
-        raise NotImplementedError(_MATRIX_MODELS_TODO.format(cam_model))
+    """Per-camera parameter vector: the rpc correction starts at identity;
+    a matrix camera is decomposed into its angles, translation and
+    intrinsics."""
+    if cam_model == "affine":
+        K, R, vecT = cam_utils.decompose_affine_camera(camera)
+        vecR = np.array(euler_angles_from_R(R), dtype=np.float64)
+        fx, fy, skew = K[0, 0], K[1, 1], K[0, 1]
+        return np.hstack((vecR.ravel(), np.asarray(vecT).ravel(), fx, fy, skew))
+    if cam_model == "perspective":
+        K, R, vecT, _ = cam_utils.decompose_perspective_camera(camera)
+        K = K / K[2, 2]
+        vecR = np.array(euler_angles_from_R(R), dtype=np.float64)
+        fx, fy, skew, cx, cy = K[0, 0], K[1, 1], K[0, 1], K[0, 2], K[1, 2]
+        return np.hstack((vecR.ravel(), np.asarray(vecT).ravel(), fx, fy, skew, cx, cy))
     return np.hstack((np.zeros(6), np.asarray(camera_center, np.float64).ravel()))
+
+
+def _R_from_angles(vecR):
+    return euler_angles_to_R(*torch.as_tensor(np.asarray(vecR, np.float64))).numpy()
+
+
+def load_camera_from_cam_params(cam_params, cam_model):
+    """The camera of a parameter vector: a 3x4 matrix (normalized to
+    P[2, 3] = 1) for the matrix models, the (1, 9) vector for rpc."""
+    cam_params = np.asarray(cam_params)
+    if cam_model == "affine":
+        vecR, vecT = cam_params[0:3], cam_params[3:5]
+        fx, fy, skew = cam_params[5], cam_params[6], cam_params[7]
+        K = np.array([[fx, skew], [0, fy]])
+        P = cam_utils.compose_affine_camera(K, _R_from_angles(vecR), vecT)
+        return P / P[2, 3]
+    if cam_model == "perspective":
+        vecR, vecT = cam_params[0:3], cam_params[3:6]
+        fx, fy, skew = cam_params[6], cam_params[7], cam_params[8]
+        cx, cy = cam_params[9], cam_params[10]
+        K = np.array([[fx, skew, cx], [0, fy, cy], [0, 0, 1]])
+        P = K @ np.hstack((_R_from_angles(vecR), vecT.reshape(3, 1)))
+        return P / P[2, 3]
+    return cam_params.reshape(1, 9)
 
 
 class BAParams:
@@ -33,17 +70,15 @@ class BAParams:
     Args:
       C: (2M, N) correspondence matrix (NaN where unobserved)
       pts3d: (N, 3) initial ECEF tie points
-      cameras: list of M RPCModel (numpy fields)
-      cam_model: "rpc"
+      cameras: list of M RPCModel (numpy fields) or 3x4 matrices
+      cam_model: "rpc" | "affine" | "perspective"
       pairs_to_triangulate: list of camera index pairs
       camera_centers: list of (3,) arrays
       d: optional dict with n_cam_fix, n_pts_fix, reduce, verbose,
-         correction_params (subset of R/T), ref_cam_weight
+         correction_params (subset of R/T/K/COMMON_K), ref_cam_weight
     """
 
     def __init__(self, C, pts3d, cameras, cam_model, pairs_to_triangulate, camera_centers, d=None):
-        if cam_model != "rpc":
-            raise NotImplementedError(_MATRIX_MODELS_TODO.format(cam_model))
         d = d or {}
         self.C = np.array(C, dtype=np.float64)
         self.pts3d = np.array(pts3d, dtype=np.float64)
@@ -97,19 +132,27 @@ class BAParams:
             print("{} parameters to optimize per camera\n".format(self.n_params))
 
     def _set_param_layout(self):
-        """Number of optimized parameters, frozen-entity masks and the
-        stacked RPCs; shared by both constructors."""
+        """Number of optimized parameters, COMMON_K's seeding, frozen-entity
+        masks and the stacked RPCs; shared by both constructors."""
+        affine = self.cam_model == "affine"
         n_params = 0
         self.n_params_k = 0
         if "R" in self.cam_params_to_optimize:
             n_params += 3
             if "T" in self.cam_params_to_optimize:
-                n_params += 3
+                n_params += 2 if affine else 3
                 if "K" in self.cam_params_to_optimize:
-                    self.n_params_k = 5
+                    self.n_params_k = 3 if affine else 5
                     n_params += self.n_params_k
         self.n_params = n_params
+        # COMMON_K: one K for every camera. It stays in each camera's row,
+        # seeded from camera 0; the solver's tied-tail projection
+        # (ops/lm.LMConfig.tie_tail) keeps the optimized cameras' K equal.
+        # Frozen cameras keep their (equally seeded) K and do not drive it.
         self.common_k = self.n_params_k > 0 and "COMMON_K" in self.cam_params_to_optimize
+        if self.common_k:
+            k0, k1 = self.n_params - self.n_params_k, self.n_params
+            self.cam_params[:, k0:k1] = self.cam_params[0, k0:k1]
 
         self.cam_opt_mask = np.ones(self.n_cam)
         self.cam_opt_mask[: self.n_cam_fix] = 0.0
@@ -117,7 +160,7 @@ class BAParams:
         self.pts_opt_mask[: self.n_pts_fix] = 0.0
 
         # host copy of the batched RPCs; the solver moves it to its device
-        self.rpcs = stack_rpcs(self.cameras, "cpu")
+        self.rpcs = stack_rpcs(self.cameras, "cpu") if self.cam_model == "rpc" else None
 
         self.pts3d_ba = None
         self.cameras_ba = None
@@ -131,8 +174,6 @@ class BAParams:
         so both constructors give identical problems. No reduce pass:
         callers pass tables in which every track is observed by an
         optimizable camera."""
-        if cam_model != "rpc":
-            raise NotImplementedError(_MATRIX_MODELS_TODO.format(cam_model))
         self = cls.__new__(cls)
         d = d or {}
         self.C = None
@@ -212,7 +253,7 @@ class BAParams:
         return self.cam_params[:, : self.n_params].copy()
 
     def full_cam_params(self, cam_opt):
-        """Optimized prefix + constant tail -> (M, 9)."""
+        """Optimized prefix + constant tail -> (M, F)."""
         return np.hstack([np.asarray(cam_opt), self.cam_params[:, self.n_params:]])
 
     def reconstruct_vars(self, cam_opt, pts3d_ba, pts3d_init, cameras_init):
@@ -221,7 +262,8 @@ class BAParams:
         cam_opt and pts3d_ba may be tensors on any device."""
         cam_params = self.full_cam_params(_to_numpy(cam_opt))
         self.pts3d_ba = _to_numpy(pts3d_ba)
-        self.cameras_ba = [cam_params[i].reshape(1, 9) for i in range(self.n_cam)]
+        self.cameras_ba = [load_camera_from_cam_params(cam_params[i], self.cam_model)
+                           for i in range(self.n_cam)]
 
         self.estimated_params = []
         for i in range(self.n_cam):
@@ -230,7 +272,8 @@ class BAParams:
                 est["R"] = cam_params[i, :3]
             if "T" in self.cam_params_to_optimize:
                 est["T"] = cam_params[i, 3:6]
-            est["C"] = cam_params[i, 6:9]
+            if self.cam_model == "rpc":
+                est["C"] = cam_params[i, 6:9]
             self.estimated_params.append(est)
 
         corrected_pts3d = np.array(pts3d_init, dtype=np.float64, copy=True)

@@ -12,8 +12,9 @@ the others iterate; here a per-camera active mask does the same, with one
 host sync per IRLS iteration. A failed factorization does not raise: its
 solution is NaN, as JAX's Cholesky gives, and the camera stops iterating.
 The coverage test (convex hull against the image rectangle) is host
-geometry, once per margin round. `fit_rpc_from_projection_matrix` waits
-for the matrix camera models (ROADMAP.md, Queue 1 item 9).
+geometry, once per margin round. `fit_Rt_corrected_rpc` and
+`fit_rpc_from_projection_matrix` (the refit of a matrix camera) fit one
+camera on the host.
 """
 
 import numpy as np
@@ -21,7 +22,11 @@ import torch
 
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.models import ellipsoid
-from sat_bundleadjust_tpu_torch.models.cameras import apply_rpc_projection_np, generate_point_mesh
+from sat_bundleadjust_tpu_torch.models.cameras import (
+    apply_projection_matrix,
+    apply_rpc_projection_np,
+    generate_point_mesh,
+)
 from sat_bundleadjust_tpu_torch.models.rpc import (
     RPCModel,
     _np_basis,
@@ -434,3 +439,24 @@ def fit_Rt_corrected_rpc(Rt_vec, global_transform, original_rpc, crop_offset, pt
 
     return _fit_loop(project_grid, original_rpc, crop_offset, pts3d_adj_for_alt,
                      n_samples=n_samples)
+
+
+def fit_rpc_from_projection_matrix(P, global_transform, original_rpc, crop_offset, pts3d_ba,
+                                   n_samples=10):
+    """Fit a fresh RPC to a 3x4 projection matrix of the crop, one camera on
+    the host; the altitude range is centred on the points' median altitude,
+    at least +-8000 m wide."""
+    pts3d_ba = np.asarray(pts3d_ba)
+    pts3d_adj_for_alt = pts3d_ba - global_transform if global_transform is not None else pts3d_ba
+    _, _, alts = ellipsoid.ecef_to_latlon_np(
+        pts3d_adj_for_alt[:, 0], pts3d_adj_for_alt[:, 1], pts3d_adj_for_alt[:, 2])
+    alt_offset = float(np.median(alts))
+    alt_scale = max(8000.0, float(np.asarray(original_rpc.alt_scale)))
+    x0, y0 = crop_offset["col0"], crop_offset["row0"]
+
+    def project_grid(pts3d):
+        p = pts3d + global_transform if global_transform is not None else pts3d
+        return apply_projection_matrix(P, p) + np.array([x0, y0])
+
+    return _fit_loop(project_grid, original_rpc, crop_offset, pts3d_adj_for_alt,
+                     alt_offset=alt_offset, alt_scale=alt_scale, n_samples=n_samples)

@@ -1,10 +1,15 @@
-"""Bundle adjustment solve driver (rpc camera model).
+"""Bundle adjustment solve driver.
 
 Counterpart of `sat_bundleadjust_tpu/ba/solver.py`: residual and Jacobian
 closures over the observation table of a BAParams problem, the LMProblem
 structure, and the Levenberg-Marquardt engine of ops/lm.py. The
 optimization keys mirror the reference's (loss, ftol, xtol, f_scale,
 max_iter, verbose).
+
+The rpc model has closed-form Jacobians (ops/jacobians.py) in the chosen
+Jacobian dtype; the affine and perspective models take theirs by
+forward-mode AD of the per-observation residual (torch.func.jacfwd under
+vmap) in float64, as the JAX package does with jax.jacfwd.
 """
 
 import time
@@ -17,6 +22,7 @@ from sat_bundleadjust_tpu_torch.models.rpc import map_rpc
 from sat_bundleadjust_tpu_torch.ops import lm as lm_ops
 from sat_bundleadjust_tpu_torch.ops.fastgeo import anchors_from_rpcs
 from sat_bundleadjust_tpu_torch.ops.jacobians import residuals_and_jacobians_rpc, residuals_rpc
+from sat_bundleadjust_tpu_torch.ops.project import affine_from_params, perspective_from_params
 
 
 def init_optimization_config(config=None):
@@ -31,10 +37,21 @@ def init_optimization_config(config=None):
     return out
 
 
+def _obs_residual_fn(proj_of):
+    """Residual of one observation of a matrix camera, w * (proj - obs),
+    (2,): cam_opt the optimized prefix, cam_tail the constant rest."""
+
+    def fn(cam_opt, pt, cam_tail, obs2d, w):
+        return w * (proj_of(pt, torch.cat([cam_opt, cam_tail])) - obs2d)
+
+    return fn
+
+
 def make_fns(p, device, jac_dtype=torch.float32):
     """(residual_fn, jac_fn) over the observation table of a BAParams, on
     device: residual_fn(cam_opt, pts3d) -> r (K, 2) f64; jac_fn -> (r,
-    J_cam, J_pt) with the Jacobians in jac_dtype."""
+    J_cam, J_pt), the rpc Jacobians in jac_dtype, the matrix models' in
+    float64."""
     dev = torch.device(device)
     n_params = p.n_params
     f64 = torch.float64
@@ -43,6 +60,23 @@ def make_fns(p, device, jac_dtype=torch.float32):
     cam_ind = torch.as_tensor(p.cam_ind, dtype=torch.int64, device=dev)
     pts2d = torch.as_tensor(p.pts2d, dtype=f64, device=dev)
     w = torch.as_tensor(p.pts2d_w, dtype=f64, device=dev)
+
+    if p.cam_model != "rpc":
+        proj_of = affine_from_params if p.cam_model == "affine" else perspective_from_params
+        jac_obs = torch.func.vmap(torch.func.jacfwd(_obs_residual_fn(proj_of), argnums=(0, 1)))
+        tail_k = cam_tail[cam_ind]
+
+        def residual_fn(cam_opt, pts3d):
+            camv = torch.cat([cam_opt[cam_ind], tail_k], dim=1)
+            return w[:, None] * (proj_of(pts3d[pts_ind], camv) - pts2d)
+
+        def jac_fn(cam_opt, pts3d):
+            cam_k, pt_k = cam_opt[cam_ind], pts3d[pts_ind]
+            J_cam, J_pt = jac_obs(cam_k, pt_k, tail_k, pts2d, w)
+            return residual_fn(cam_opt, pts3d), J_cam, J_pt
+
+        return residual_fn, jac_fn
+
     rpcs = map_rpc(lambda f: f.to(dev), p.rpcs)
     anchors = anchors_from_rpcs(rpcs)
 
@@ -119,9 +153,6 @@ class BASolver:
     syncs, CG iterations, matvecs, wall time)."""
 
     def __init__(self, p, schur_mode=None, jac_dtype=None, device=None):
-        if getattr(p, "common_k", False):
-            raise NotImplementedError(
-                "COMMON_K (the tied-tail CG projector) is not ported yet (see ROADMAP.md)")
         self.p = p
         self.device = resolve_device(device)
         self.residual_fn, self.jac_fn = make_fns(
@@ -129,14 +160,19 @@ class BASolver:
         self.prob, self.mode = build_problem(p, self.device, schur_mode)
 
     def config(self, ls_params=None):
+        """The LMConfig of a solve. COMMON_K ties the trailing n_params_k
+        parameters across the optimized cameras, which only the CG solve
+        does."""
         ls = init_optimization_config(ls_params)
+        common_k = getattr(self.p, "common_k", False)
         return lm_ops.LMConfig(
             loss=ls["loss"],
             f_scale=float(ls["f_scale"]),
             max_iter=int(ls["max_iter"]),
             ftol=float(ls["ftol"]),
             xtol=float(ls["xtol"]),
-            schur_mode=self.mode,
+            schur_mode="cg" if common_k else self.mode,
+            tie_tail=self.p.n_params_k if common_k else 0,
             cg_coarse_k=lm_ops.default_coarse_k(self.p.n_cam),
         )
 

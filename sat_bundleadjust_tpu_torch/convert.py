@@ -5,7 +5,8 @@ package's objects — into the port's objects:
   * stacked RPC coefficients and offsets (RPCModel field order, leading dim
     M) into a batched RPCModel of tensors, or a list of per-camera models;
   * a BA problem's observation table, camera parameters, tie points, masks
-    and triangulation pairs into a BAParams.
+    and triangulation pairs into a BAParams, for the rpc model (stacked RPC
+    fields) or a matrix model (stacked 3x4 cameras).
 This module imports neither the JAX package nor JAX.
 """
 
@@ -40,22 +41,29 @@ def rpc_list_from_arrays(fields):
 def baparams_from_arrays(state):
     """A BAParams from a dict of numpy arrays:
 
-      rpcs: stacked RPC fields (M leading);
-      cam_params (M, 9), pts3d (N, 3);
+      cam_model: "rpc" (default), "affine" or "perspective";
+      rpcs: stacked RPC fields (M leading), for "rpc";
+      cameras: (M, 3, 4) matrices and camera_centers (M, 3), for the
+      matrix models;
+      cam_params (M, F), pts3d (N, 3);
       pts_ind, cam_ind (K,), pts2d (K, 2), pts2d_w (K,);
       cam_opt_mask (M,), pts_opt_mask (N,);
       pairs_to_triangulate: (Q, 2) camera pairs;
-      correction_params: list such as ["R"];
+      correction_params: list such as ["R"] or ["R", "T", "K", "COMMON_K"];
       optional: C (2M, N), pts_prev_indices, cam_prev_indices,
       ref_cam_weight.
     """
     p = BAParams.__new__(BAParams)
-    p.cam_model = "rpc"
+    p.cam_model = state.get("cam_model", "rpc")
     p.C = None if state.get("C") is None else np.array(state["C"], np.float64)
     p.pts3d = np.array(state["pts3d"], np.float64)
-    p.cameras = rpc_list_from_arrays(state["rpcs"])
     p.cam_params = np.array(state["cam_params"], np.float64)
-    p.camera_centers = [c for c in p.cam_params[:, 6:9]]
+    if p.cam_model == "rpc":
+        p.cameras = rpc_list_from_arrays(state["rpcs"])
+        p.camera_centers = [c for c in p.cam_params[:, 6:9]]
+    else:
+        p.cameras = [np.array(c, np.float64) for c in state["cameras"]]
+        p.camera_centers = [np.array(c, np.float64) for c in state["camera_centers"]]
     p.pairs_to_triangulate = [(int(a), int(b)) for a, b in state["pairs_to_triangulate"]]
     p.cam_params_to_optimize = list(state["correction_params"])
     p.ref_cam_weight = float(state.get("ref_cam_weight", 1.0))

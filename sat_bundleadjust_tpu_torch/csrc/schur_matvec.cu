@@ -10,6 +10,8 @@
 // twice: track-major w_pt (N, Tp, P, 3) with camera ids cam_ind_pt (N, Tp),
 // and camera-major w_cm (M, Tc, P, 3) with track ids pts_ind_cam (M, Tc).
 // Empty slots hold the sentinel id M (resp. N) and are skipped.
+// P, the parameters a camera, is 1..11 (one template instance each: rpc R
+// 3, R T 6; affine R T K 8; perspective R T K 11); any other P is refused.
 //
 // Numerical contract (the CG at 1000-camera conditioning needs it):
 //   * exact f32 products, no fused multiply-adds (__fmul_rn/__fadd_rn);
@@ -62,7 +64,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxP = 9;
+constexpr int kMaxP = 11;  // perspective R, T, K: 3 + 3 + 5
 constexpr int kCamThreads = 128;  // the tree's CTA shape: ops/schur_matvec.CAM_THREADS
 constexpr int kCamWarps = kCamThreads / 32;
 constexpr int kPointThreadsMax = 128;
@@ -485,7 +487,10 @@ extern "C" int schur_wz_prepare(SchurArgs* a) {
     case 6: return prepare_p<6>(a);
     case 7: return prepare_p<7>(a);
     case 8: return prepare_p<8>(a);
-    default: return prepare_p<9>(a);
+    case 9: return prepare_p<9>(a);
+    case 10: return prepare_p<10>(a);
+    case 11: return prepare_p<11>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -503,6 +508,9 @@ extern "C" int schur_wz_run(const SchurArgs* a, const float* x, float* wz, void*
     case 6: return run_p<6>(a, x, wz, s);
     case 7: return run_p<7>(a, x, wz, s);
     case 8: return run_p<8>(a, x, wz, s);
-    default: return run_p<9>(a, x, wz, s);
+    case 9: return run_p<9>(a, x, wz, s);
+    case 10: return run_p<10>(a, x, wz, s);
+    case 11: return run_p<11>(a, x, wz, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

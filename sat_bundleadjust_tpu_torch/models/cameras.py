@@ -1,9 +1,12 @@
-"""Camera model utilities: the SatelliteImage container, perspective matrix
-decomposition, and the least-squares perspective fit of an RPC projection.
+"""Camera model utilities: the SatelliteImage container, perspective and
+affine projection matrices (composition, decomposition, projection), and
+the local matrix approximations of an RPC projection (a first-order Taylor
+expansion, a least-squares perspective fit).
 
 Counterpart of `sat_bundleadjust_tpu/models/cameras.py` (host-side numpy,
-as there, apart from `apply_rpc_projection`, which runs on tensors). `affine_rpc_approx` (a Jacobian of the RPC chain) and the affine
-matrix helpers wait for the matrix camera models.
+as there, apart from `apply_rpc_projection`, which runs on tensors, and the
+Jacobian of `affine_rpc_approx`, taken by torch.func on float64 CPU
+tensors).
 """
 
 import numpy as np
@@ -11,7 +14,12 @@ import torch
 
 from sat_bundleadjust_tpu_torch.models import ellipsoid
 from sat_bundleadjust_tpu_torch.models.ellipsoid import latlon_to_ecef_np
-from sat_bundleadjust_tpu_torch.models.rpc import rpc_localization_np, rpc_projection, rpc_projection_np
+from sat_bundleadjust_tpu_torch.models.rpc import (
+    map_rpc,
+    rpc_localization_np,
+    rpc_projection,
+    rpc_projection_np,
+)
 
 
 class SatelliteImage:
@@ -69,6 +77,48 @@ def decompose_perspective_camera(P):
     return K, R, vecT, oC
 
 
+def compose_perspective_camera(K, R, oC):
+    """P = K R [I | -C]."""
+    oC = np.asarray(oC).reshape(3)
+    return np.asarray(K) @ np.asarray(R) @ np.hstack((np.eye(3), -oC.reshape(3, 1)))
+
+
+def decompose_affine_camera(P):
+    """Affine camera -> (K (2, 2), R (3, 3), vecT (2, 1)) (Hartley and
+    Zisserman, 6.3.3)."""
+    P = np.asarray(P, dtype=np.float64)
+    M, T = P[:2, :3], np.array([P[:2, -1]])
+    MMt = M @ M.T
+    fy = np.sqrt(MMt[1, 1])
+    s = MMt[1, 0] / fy
+    fx = np.sqrt(MMt[0, 0] - s ** 2)
+    K = np.array([[fx, s], [0, fy]])
+    R = np.linalg.inv(K) @ M
+    r1 = R[0, :][np.newaxis].T
+    r2 = R[1, :][np.newaxis].T
+    r3 = np.cross(r1, r2, axis=0)
+    R = np.vstack((r1.T, r2.T, r3.T))
+    vecT = np.linalg.inv(K) @ T[-1, np.newaxis].T
+    return K, R, vecT
+
+
+def compose_affine_camera(K, R, vecT):
+    """(K (2, 2), R (3, 3), vecT (2,)) -> the 3x4 affine camera."""
+    K = np.asarray(K)
+    R = np.asarray(R)
+    vecT = np.asarray(vecT)
+    extrinsics = np.vstack([np.hstack([R[:2], vecT.reshape(2, 1)]), np.array([[0, 0, 0, 1]])])
+    intrinsics = np.hstack([np.vstack([K, np.array([[0, 0]])]), np.array([[0, 0, 1]]).T])
+    return intrinsics @ extrinsics
+
+
+def apply_projection_matrix(P, pts3d):
+    """Project (N, 3) points with a 3x4 matrix -> (N, 2)."""
+    pts3d = np.asarray(pts3d)
+    proj = np.asarray(P) @ np.hstack((pts3d, np.ones((pts3d.shape[0], 1)))).T
+    return (proj[:2, :] / proj[-1, :]).T
+
+
 def apply_rpc_projection(rpc, pts3d):
     """Project (..., 3) ECEF points with an RPC whose fields are tensors on
     the points' device: ECEF -> geodetic -> RPC, (..., 2) (col, row)."""
@@ -83,6 +133,33 @@ def apply_rpc_projection_np(rpc, pts3d):
     lat, lon, alt = ellipsoid.ecef_to_latlon_np(pts3d[..., 0], pts3d[..., 1], pts3d[..., 2])
     col, row = rpc_projection_np(rpc, lon, lat, alt)
     return np.stack((col, row), axis=-1)
+
+
+def affine_rpc_approx(rpc, x, y, z, offset=None):
+    """First-order Taylor expansion of the RPC projection at the ECEF point
+    (x, y, z), as a 3x4 affine camera of the crop `offset`. The Jacobian of
+    ECEF -> geodetic -> RPC is taken by forward-mode AD (torch.func.jacfwd)
+    on float64 CPU tensors."""
+    if offset is None:
+        offset = {"col0": 0.0, "row0": 0.0}
+    rpc_t = map_rpc(lambda f: torch.as_tensor(np.asarray(f, np.float64)), rpc)
+
+    def project(p):
+        lat, lon, alt = ellipsoid.ecef_to_latlon(p[0], p[1], p[2])
+        col, row = rpc_projection(rpc_t, lon, lat, alt)
+        return torch.stack([col, row])
+
+    p0 = torch.tensor([float(x), float(y), float(z)], dtype=torch.float64)
+    q = project(p0).numpy()
+    J = torch.func.jacfwd(project)(p0).numpy()
+    A = np.zeros((3, 4))
+    A[:2, :3] = J
+    A[:2, 3] = q - J @ p0.numpy()
+    A[2, 3] = 1.0
+    offset_translation = np.array(
+        [[1.0, 0.0, -offset["col0"]], [0.0, 1.0, -offset["row0"]], [0.0, 0.0, 1.0]])
+    P = offset_translation @ A
+    return P / P[2, 3]
 
 
 def generate_point_mesh(col_range, row_range, alt_range):

@@ -1,9 +1,11 @@
 """Euler-angle rotations on tensors.
 
 Counterpart of `sat_bundleadjust_tpu/models/rotations.py` (the parts the
-BA stage runs). Convention: R = Rz(yaw) @ Ry(pitch) @ Rx(roll).
+BA stage runs, and the matrix -> angles conversion of the matrix camera
+models, in numpy). Convention: R = Rz(yaw) @ Ry(pitch) @ Rx(roll).
 """
 
+import numpy as np
 import torch
 
 
@@ -43,3 +45,15 @@ def euler_angles_to_R(roll, pitch, yaw):
         ],
         dim=-2,
     )
+
+
+def euler_angles_from_R(R):
+    """(..., 3, 3) rotation matrix (numpy) -> (roll, pitch, yaw)."""
+    R = np.asarray(R, np.float64)
+    sy = np.sqrt(R[..., 0, 0] ** 2 + R[..., 1, 0] ** 2)
+    singular = sy < 1e-6
+    roll = np.where(singular, np.arctan2(-R[..., 1, 2], R[..., 1, 1]),
+                    np.arctan2(R[..., 2, 1], R[..., 2, 2]))
+    pitch = np.arctan2(-R[..., 2, 0], sy)
+    yaw = np.where(singular, np.zeros_like(sy), np.arctan2(R[..., 1, 0], R[..., 0, 0]))
+    return roll, pitch, yaw

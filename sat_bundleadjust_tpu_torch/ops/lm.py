@@ -78,6 +78,12 @@ class LMConfig(NamedTuple):
     # CG operator: "auto" = the schur_wz kernel (its plain version on CPU
     # tensors); "plain" = schur_wz_plain; "aos" = dense f32 reductions
     matvec: str = "auto"
+    # COMMON_K: the number of trailing per-camera parameters tied to one
+    # value across the optimized cameras. The CG runs on P S P, P the
+    # projector that averages that block over the optimized cameras (the
+    # null-space method for the shared K); 0 = no tying. Only the CG solve
+    # ties, so the dense solve is not taken when it is set.
+    tie_tail: int = 0
 
 
 def default_coarse_k(n_cam):
@@ -324,13 +330,33 @@ def schur_wz_aos(x, W_pt, cam_ind_pt, W_cm, pts_ind_cam):
     return torch.sum(sm.mv(W_cm, what[pts_ind_cam.long().clamp(max=N - 1)]), dim=1)
 
 
+def tied_tail_projector(m, P, tie_tail):
+    """x (M, P) -> x with its trailing tie_tail columns replaced, on the
+    optimized cameras (m = 1), by their mean over those cameras; frozen
+    cameras keep theirs. The identity when tie_tail is 0. Device ops only
+    (no host sync), so that a bound CG step stays capture-safe."""
+    if not tie_tail:
+        return lambda x: x
+    t = tie_tail
+    msum = torch.clamp(torch.sum(m), min=1.0)
+
+    def proj(x):
+        tail = x[:, P - t:]
+        shared = torch.sum(tail * m, dim=0) / msum
+        return torch.cat([x[:, :P - t], shared[None, :] * m + tail * (1.0 - m)], dim=1)
+
+    return proj
+
+
 def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
-                    cg_rtol=1e-2, x0=None, coarse=True, coarse_k=1,
+                    cg_rtol=1e-2, tie_tail=0, x0=None, coarse=True, coarse_k=1,
                     matvec_impl="auto", stats=None):
     """Matrix-free preconditioned CG on the Schur complement, in float32.
 
     matvec(x) = U x - W V^-1 W^T x. LM only needs a descent direction, so
-    the budget is truncated (cg_iters) with forcing term cg_rtol."""
+    the budget is truncated (cg_iters) with forcing term cg_rtol. With
+    tie_tail the projector of tied_tail_projector is applied to b, to every
+    operator result and to every preconditioner application."""
     if matvec_impl not in MATVECS:
         raise ValueError("matvec must be one of {}, got {!r}".format(MATVECS, matvec_impl))
     stats = new_stats() if stats is None else stats
@@ -390,14 +416,17 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
                                n_clusters=G)
         Einv = coarse_inverse(E.reshape(G * P, G * P))
 
-    def apply_prec(v):
-        out = sm.mv(prec, v)
-        if coarse:
-            vc = (Zg.T @ v).reshape(-1)
-            out = out + Zg @ (Einv @ vc).reshape(G, P)
-        return out * m + v * (1.0 - m)
+    proj = tied_tail_projector(m, P, tie_tail)
 
-    b = b * m
+    def apply_prec(v):
+        pv = proj(v)
+        out = sm.mv(prec, pv)
+        if coarse:
+            vc = (Zg.T @ pv).reshape(-1)
+            out = out + Zg @ (Einv @ vc).reshape(G, P)
+        return proj(out * m + v * (1.0 - m))
+
+    b = proj(b * m)
     rr0 = torch.sum(b * b)
     if x0 is None:
         x = torch.zeros_like(b)
@@ -405,8 +434,8 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
     else:
         # warm start from the previous LM step, unless it is a worse start
         # than zero
-        x0 = x0.to(f32) * m
-        r_w = b - matvec(x0)
+        x0 = proj(x0.to(f32) * m)
+        r_w = b - proj(matvec(x0))
         use_warm = torch.sum(r_w * r_w) < rr0
         x = torch.where(use_warm, x0, torch.zeros_like(b))
         r = torch.where(use_warm, r_w, b)
@@ -421,7 +450,7 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
         stats["host_syncs"] += 1
         if not bool(torch.sum(r * r) > tol):
             break
-        Ap = matvec(p)
+        Ap = proj(matvec(p))
         denom = torch.sum(p * Ap)
         alpha = rz / torch.where(denom.abs() < 1e-30, one, denom)
         x = x + alpha * p
@@ -513,14 +542,14 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
 
     b = _schur_rhs(g_cam, g_pt, W, Vinv, prob, n_cam)
     cmask = prob.cam_opt_mask.to(dt)
-    if cfg.schur_mode == "dense":
+    if cfg.schur_mode == "dense" and not cfg.tie_tail:
         solve = _dense_mxu_schur_solve if prob.obs_at is not None else _dense_schur_solve
         dcam = solve(U_d, W, Vinv, b, prob, n_cam, cmask)
     else:
         dcam = _cg_schur_solve(
             U_d, W, Vinv, b, prob, n_cam, cmask,
             cfg.cg_iters or default_cg_iters(n_cam),
-            cg_rtol=cfg.cg_rtol, x0=x0_cam, coarse=cfg.cg_coarse,
+            cg_rtol=cfg.cg_rtol, tie_tail=cfg.tie_tail, x0=x0_cam, coarse=cfg.cg_coarse,
             coarse_k=cfg.cg_coarse_k, matvec_impl=cfg.matvec, stats=stats,
         )
 

@@ -27,7 +27,8 @@ import torch
 
 from sat_bundleadjust_tpu_torch.ops import _build
 
-MAX_P = 9
+# the kernels' widest camera block: perspective R, T, K (3 + 3 + 5)
+MAX_P = 11
 # the camera CTA's threads: a thread sums slots t, t+128, ... of its chunk
 CAM_THREADS = 128
 # camera work items to aim for (M * chunks), and the most chunks per camera

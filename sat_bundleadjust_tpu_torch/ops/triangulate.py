@@ -1,10 +1,12 @@
-"""Batched tie-point triangulation (rpc camera model).
+"""Batched tie-point triangulation.
 
 Counterpart of `sat_bundleadjust_tpu/ops/triangulate.py`. Every (pair,
 track) observation duo across all stereo pairs is triangulated in one
-batch by the reference's altitude search (secant along the epipolar curve,
-hstep 1, stop at |lambda| < 1e-5, at most 24 steps), with converged duos
-frozen; the per-track mean over pairs is a segment mean on the host.
+batch: with RPC cameras by the reference's altitude search (secant along
+the epipolar curve, hstep 1, stop at |lambda| < 1e-5, at most 24 steps),
+with converged duos frozen; with 3x4 matrix cameras (affine, perspective)
+by the linear (DLT) method, one batched 4x4 SVD. The per-track mean over
+pairs is a segment mean on the host.
 """
 
 import os
@@ -56,6 +58,21 @@ def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b):
     return ellipsoid.latlon_to_ecef_arr(lat, lon, h), err
 
 
+def linear_triangulation(P1, P2, pts1, pts2):
+    """DLT triangulation of matched pixels (..., 2) with 3x4 projection
+    matrices P1, P2 (shared, or batched like the points): the right
+    singular vector of the stacked 4x4 system, dehomogenized -> (..., 3)."""
+
+    def rows(P, pts):
+        P = P.expand(pts.shape[:-1] + (3, 4)) if P.dim() == 2 else P
+        return torch.stack([pts[..., 0:1] * P[..., 2, :] - P[..., 0, :],
+                            pts[..., 1:2] * P[..., 2, :] - P[..., 1, :]], dim=-2)
+
+    A = torch.cat([rows(P1, pts1), rows(P2, pts2)], dim=-2)  # (..., 4, 4)
+    X = torch.linalg.svd(A).Vh[..., -1, :]
+    return X[..., :3] / X[..., 3:4]
+
+
 def build_triangulation_batch(C, pairs_to_triangulate):
     """Flatten (pair, track) observation duos of C (2M, N) into one batch:
     dict of cam_a, cam_b (B,), pts_a, pts_b (B, 2), track (B,); None when
@@ -87,16 +104,18 @@ def build_triangulation_batch(C, pairs_to_triangulate):
 
 def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, device=None):
     """One 3-D point per track of C: the mean of its pairwise
-    triangulations ((N, 3) numpy, zeros for tracks without a pair)."""
-    if cam_model != "rpc":
-        raise NotImplementedError(
-            "cam_model {!r} is not ported yet (see ROADMAP.md)".format(cam_model))
+    triangulations ((N, 3) numpy, zeros for tracks without a pair).
+    cameras: RPCModels (cam_model "rpc") or 3x4 matrices."""
     dev = resolve_device(device)
     n_pts = C.shape[1]
     batch = build_triangulation_batch(C, pairs_to_triangulate)
     if batch is None:
         return np.zeros((n_pts, 3))
-    rpcs = stack_rpcs(cameras, dev)
+    if cam_model == "rpc":
+        rpcs = stack_rpcs(cameras, dev)
+    else:
+        mats = torch.as_tensor(np.stack([np.asarray(c, np.float64) for c in cameras]),
+                               device=dev)
     B = int(batch["track"].shape[0])
     chunk = int(os.environ.get("SATBA_TRIANG_CHUNK", CHUNK))
     sums = np.zeros((n_pts, 3))
@@ -104,11 +123,13 @@ def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, devic
         sl = slice(s, min(s + chunk, B))
         cam_a = torch.as_tensor(batch["cam_a"][sl], dtype=torch.int64, device=dev)
         cam_b = torch.as_tensor(batch["cam_b"][sl], dtype=torch.int64, device=dev)
-        pts3d, _ = rpc_triangulation(
-            index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b),
-            torch.as_tensor(batch["pts_a"][sl], dtype=torch.float64, device=dev),
-            torch.as_tensor(batch["pts_b"][sl], dtype=torch.float64, device=dev),
-        )
+        pts_a = torch.as_tensor(batch["pts_a"][sl], dtype=torch.float64, device=dev)
+        pts_b = torch.as_tensor(batch["pts_b"][sl], dtype=torch.float64, device=dev)
+        if cam_model == "rpc":
+            pts3d, _ = rpc_triangulation(index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b),
+                                         pts_a, pts_b)
+        else:
+            pts3d = linear_triangulation(mats[cam_a], mats[cam_b], pts_a, pts_b)
         # deterministic host-side segment sum, in duo order
         np.add.at(sums, batch["track"][sl], pts3d.cpu().numpy())
     counts = np.bincount(batch["track"], minlength=n_pts).astype(np.float64)

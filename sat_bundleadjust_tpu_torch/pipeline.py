@@ -9,12 +9,14 @@ AOI.json, ba_figures/).
 
 Detection, matching, triangulation, the LM solves and the RPC refit run on
 `device` (default: the card); the orchestration and the files are host
-code, as there. One process on one device: the JAX package's mesh route
-(`distributed`, `mesh`) is not ported (ROADMAP.md, Queue 1 item 12), nor
-are the matrix camera models (item 9) or predefined matches (item 8);
-asking for any of them raises. `timing` collects the seconds of every step
-of the last run, `ft_timing` those of the tracks front end, `ba_rounds`
-the counters of each LM solve and `refit_stats` the refit's.
+code, as there. The camera models are rpc, affine and perspective (the
+matrix models write P_adj/ and refit their .rpc_adj on the host); the
+tracks come from the tracks front end or from a predefined-matches bundle
+(in_dir/predefined_matches). One process on one device: the JAX package's
+mesh route (`distributed`, `mesh`) is not ported (ROADMAP.md, Queue 1 item
+12) and raises. `timing` collects the seconds of every step of the last
+run, `ft_timing` those of the tracks front end, `ba_rounds` the counters of
+each LM solve and `refit_stats` the refit's.
 """
 
 import copy
@@ -29,6 +31,8 @@ from sat_bundleadjust_tpu_torch.ba import outliers as ba_outliers
 from sat_bundleadjust_tpu_torch.ba import rpcfit as ba_rpcfit
 from sat_bundleadjust_tpu_torch.ba.params import BAParams
 from sat_bundleadjust_tpu_torch.ba.solver import BASolver, run_ba_optimization
+from sat_bundleadjust_tpu_torch.models import cameras as cam_utils
+from sat_bundleadjust_tpu_torch.models.ellipsoid import latlon_to_ecef_np
 from sat_bundleadjust_tpu_torch.models.rpc import write_rpc_file
 from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
 from sat_bundleadjust_tpu_torch.tracks import build as ft_build
@@ -61,19 +65,11 @@ class BundleAdjustmentPipeline:
         self.cam_model = extra_ba_config.get("cam_model", "rpc")
         if self.cam_model not in ["rpc", "affine", "perspective"]:
             raise Error("cam_model is not valid")
-        if self.cam_model != "rpc":
-            raise NotImplementedError(
-                "cam_model {!r}: the matrix camera models are not ported yet "
-                "(ROADMAP.md, Queue 1 item 9)".format(self.cam_model))
         self.aoi = extra_ba_config.get("aoi", None)
         self.n_adj = extra_ba_config.get("n_adj", 0)
         self.n_new = len(self.images) - self.n_adj
         self.correction_params = extra_ba_config.get("correction_params", ["R"])
         self.predefined_matches = extra_ba_config.get("predefined_matches", False)
-        if self.predefined_matches:
-            raise NotImplementedError(
-                "predefined_matches: tracks/predefined.py is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8)")
         self.fix_ref_cam = extra_ba_config.get("fix_ref_cam", False)
         self.ref_cam_weight = extra_ba_config.get("ref_cam_weight", 1.0) if self.fix_ref_cam else 1.0
         self.clean_outliers = extra_ba_config.get("clean_outliers", True)
@@ -153,15 +149,34 @@ class BundleAdjustmentPipeline:
         flush_print("...done in {:.2f} seconds".format(self.timing["footprints_s"]))
 
     def set_camera_centers(self):
+        """From a perspective fit of each RPC, or, for perspective cameras,
+        from the cameras themselves."""
         t0 = timeit.default_timer()
         flush_print("Estimating camera positions...")
-        for im in self.images:
-            if im.center is None:
-                im.set_camera_center()
+        if self.cam_model != "perspective":
+            for im in self.images:
+                if im.center is None:
+                    im.set_camera_center()
+        else:
+            for im, cam in zip(self.images, self.cameras):
+                _, _, _, center = cam_utils.decompose_perspective_camera(cam)
+                im.set_camera_center(center=center)
         flush_print("...done in {:.2f} seconds".format(timeit.default_timer() - t0))
 
     def set_cameras(self):
-        self.cameras = [copy.copy(im.rpc) for im in self.images]
+        """The RPCs; or their affine approximations at the AOI centre (at
+        altitude 0); or their perspective approximations over each crop."""
+        if self.cam_model == "affine":
+            lon, lat = self.aoi["center"]
+            x, y, z = latlon_to_ecef_np(lat, lon, 0.0)
+            self.cameras = [cam_utils.affine_rpc_approx(im.rpc, float(x), float(y), float(z),
+                                                        im.offset)
+                            for im in self.images]
+        elif self.cam_model == "perspective":
+            self.cameras = [cam_utils.perspective_rpc_approx(im.rpc, im.offset)[0]
+                            for im in self.images]
+        else:
+            self.cameras = [copy.copy(im.rpc) for im in self.images]
 
     # ------------------------------------------------------------------
     # feature tracking
@@ -169,10 +184,9 @@ class BundleAdjustmentPipeline:
 
     def compute_feature_tracks(self):
         """Tracks from the initial RPCs (in_dir/../rpcs_init when present),
-        then the pair and correspondence checks; cameras with too few
-        tracks are dropped."""
-        from sat_bundleadjust_tpu_torch.tracks.pipeline import FeatureTracksPipeline
-
+        by the tracks front end or from the predefined-matches bundle in
+        in_dir/predefined_matches; then the pair and correspondence checks.
+        Cameras with too few tracks are dropped."""
         ft_images = [copy.copy(im) for im in self.images]
         init_rpc_dir = os.path.join(self.in_dir, "../rpcs_init")
         if os.path.exists(init_rpc_dir):
@@ -183,10 +197,22 @@ class BundleAdjustmentPipeline:
                 im.set_footprint(alt=default_altitude(rpc))
         local_data = {"n_adj": self.n_adj, "images": ft_images, "aoi": self.aoi}
         output_dir = os.path.join(self.out_dir, "matches")
-        ft_pipeline = FeatureTracksPipeline(output_dir, output_dir, local_data,
-                                            tracks_config=self.tracks_config, device=self.device)
-        feature_tracks, self.feature_tracks_running_time = ft_pipeline.build_feature_tracks()
-        self.ft_timing = dict(ft_pipeline.timing)
+        if self.predefined_matches:
+            from sat_bundleadjust_tpu_torch.tracks.predefined import (
+                load_tracks_from_predefined_matches,
+            )
+
+            feature_tracks, self.feature_tracks_running_time = load_tracks_from_predefined_matches(
+                os.path.join(self.in_dir, "predefined_matches"), output_dir, local_data,
+                self.tracks_config)
+        else:
+            from sat_bundleadjust_tpu_torch.tracks.pipeline import FeatureTracksPipeline
+
+            ft_pipeline = FeatureTracksPipeline(output_dir, output_dir, local_data,
+                                                tracks_config=self.tracks_config,
+                                                device=self.device)
+            feature_tracks, self.feature_tracks_running_time = ft_pipeline.build_feature_tracks()
+            self.ft_timing = dict(ft_pipeline.timing)
 
         new_camera_indices = np.arange(self.n_adj, len(self.images))
         fatal_error, err_msg, disconnected1 = ft_build.check_pairs(
@@ -201,9 +227,10 @@ class BundleAdjustmentPipeline:
         self.features = feature_tracks["features"]
         self.pairs_to_triangulate = feature_tracks["pairs_to_triangulate"]
         self.C = feature_tracks["C"]
-        for i in range(self.C.shape[0] // 2):
-            self.C[2 * i, :] += self.images[i].offset["col0"]
-            self.C[2 * i + 1, :] += self.images[i].offset["row0"]
+        if self.cam_model == "rpc":  # the matrix cameras are of the crops
+            for i in range(self.C.shape[0] // 2):
+                self.C[2 * i, :] += self.images[i].offset["col0"]
+                self.C[2 * i + 1, :] += self.images[i].offset["row0"]
         self.C_v2 = feature_tracks["C_v2"]
         self.n_pts_fix = feature_tracks["n_pts_fix"]
 
@@ -409,12 +436,17 @@ class BundleAdjustmentPipeline:
         flush_print("All estimated camera parameters written at {}/cam_params\n".format(self.out_dir))
 
     def save_corrected_rpcs(self):
-        """The adjusted cameras' RPCs, refit in one batched program per
+        """rpc: the adjusted cameras' RPCs, refit in one batched program per
         margin round on the device, and the already adjusted ones as they
-        are."""
+        are. Matrix models: every camera's RPC refit to its corrected
+        matrix, one camera at a time on the host."""
         out_dir = os.path.join(self.out_dir, "rpcs_adj")
         fnames = [os.path.join(out_dir, loader.get_id(im.geotiff_path) + ".rpc_adj")
                   for im in self.images]
+        if self.cam_model in ["perspective", "affine"]:
+            self._save_rpcs_of_matrices(fnames)
+            flush_print("Bundle adjusted rpcs written at {}\n".format(out_dir))
+            return
         for cam_idx in range(self.n_adj):
             write_rpc_file(self.cameras[cam_idx], fnames[cam_idx])
         cam_prev = list(self.ba_params.cam_prev_indices)
@@ -439,7 +471,44 @@ class BundleAdjustmentPipeline:
             write_rpc_file(rpc_calib, fnames[cam_idx])
         flush_print("Bundle adjusted rpcs written at {}\n".format(out_dir))
 
+    def _save_rpcs_of_matrices(self, fnames):
+        t0 = timeit.default_timer()
+        results = []
+        for cam_idx, (fn, cam) in enumerate(zip(fnames, self.corrected_cameras)):
+            pts_seen = self.ba_params.pts3d_ba[~np.isnan(self.ba_params.C[2 * cam_idx])]
+            rpc_calib, err, margin = ba_rpcfit.fit_rpc_from_projection_matrix(
+                cam, self.global_transform, self.images[cam_idx].rpc, self.images[cam_idx].offset,
+                pts_seen)
+            flush_print("cam {:2} - RPC fit error per obs [1e-4 px] max / med: {:.2f} / {:.2f} (margin {})"
+                        .format(cam_idx, 1e4 * err.max(), 1e4 * np.median(err), margin))
+            write_rpc_file(rpc_calib, fn)
+            results.append((err, margin))
+        self.timing["refit_s"] = timeit.default_timer() - t0
+        self.refit_stats = {
+            "fit_error_max": [float(err.max()) for err, _ in results],
+            "fit_error_median": [float(np.median(err)) for err, _ in results],
+            "margins": [margin for _, margin in results],
+        }
+
+    def save_initial_matrices(self):
+        """The initial projection matrices, as P_init/<id>_pinhole.json."""
+        out_dir = os.path.join(self.out_dir, "P_init")
+        fnames = [os.path.join(out_dir, loader.get_id(im.geotiff_path) + "_pinhole.json")
+                  for im in self.images]
+        loader.save_projection_matrices(fnames, self.cameras, [im.offset for im in self.images])
+        flush_print("\nInitial projection matrices written at {}\n".format(out_dir))
+
+    def save_corrected_matrices(self):
+        """The corrected projection matrices, as P_adj/<id>_pinhole_adj.json."""
+        out_dir = os.path.join(self.out_dir, "P_adj")
+        fnames = [os.path.join(out_dir, loader.get_id(im.geotiff_path) + "_pinhole_adj.json")
+                  for im in self.images]
+        loader.save_projection_matrices(fnames, self.corrected_cameras,
+                                        [im.offset for im in self.images])
+
     def save_corrected_cameras(self):
+        if self.cam_model in ["perspective", "affine"]:
+            self.save_corrected_matrices()
         flush_print("Fitting corrected RPC models...")
         self.save_corrected_rpcs()
 
@@ -453,8 +522,9 @@ class BundleAdjustmentPipeline:
             svg_fname = "{}/ba_figures/track_obs/{}.svg".format(self.out_dir, cam_id)
             pts2d = self.ba_params.C[2 * cam_idx: 2 * cam_idx + 2, mask[cam_idx]].T.copy()
             offset = self.images[cam_prev_idx].offset
-            pts2d[:, 0] -= offset["col0"]
-            pts2d[:, 1] -= offset["row0"]
+            if self.cam_model == "rpc":
+                pts2d[:, 0] -= offset["col0"]
+                pts2d[:, 1] -= offset["row0"]
             save_pts2d_as_svg(svg_fname, pts2d, c="yellow", w=offset["width"], h=offset["height"])
 
     def save_debug_figures(self):

@@ -2,10 +2,11 @@
 into acquisition dates and runs the bundle adjustment.
 
 Counterpart of `sat_bundleadjust_tpu/timeseries.py` on one device, with
-the same config keys and the three `rpc_src` values (txt, json, geotiff).
-Of the three BA modes, `ba_bruteforce` is ported; `ba_global` and
-`ba_sequential` raise (ROADMAP.md, Queue 1 item 8) and never fall through
-to another mode.
+the same config keys, the three `rpc_src` values (txt, json, geotiff) and
+the three BA modes: `ba_bruteforce` (every image at once), `ba_sequential`
+(date by date, each against its n_dates previously adjusted dates, which
+stay frozen) and `ba_global` (every image at once, pairs restricted to a
+date and its next n_dates dates).
 """
 
 import glob
@@ -179,27 +180,73 @@ class Scene:
     # ------------------------------------------------------------------
 
     def init_ba_input_data(self):
-        """No previously adjusted images: they come in with ba_sequential,
-        which is not ported."""
         self.n_adj = 0
+        self.images_adj = []
         self.images_new = []
 
-    def load_data_from_dates(self, timeline_indices):
-        """The images of the given dates, with their initial RPCs."""
+    def check_adjusted_dates(self, input_dir, t_idx):
+        """Mark the dates before t_idx whose images have an .rpc_adj in
+        input_dir/rpcs_adj as adjusted; True if there is one."""
+        found = False
+        dir_adj = os.path.join(input_dir, "rpcs_adj")
+        if os.path.isdir(dir_adj):
+            adj_fnames = []
+            for adj_id in [loader.get_id(p) for p in glob.glob(dir_adj + "/*.rpc_adj")]:
+                hits = glob.glob(os.path.join(self.geotiff_dir, "**/" + adj_id + ".tif"),
+                                 recursive=True)
+                # raster-less scenes: the virtual path
+                adj_fnames.extend(hits or [os.path.join(self.geotiff_dir, adj_id + ".tif")])
+            print("Found {} previously adjusted images in {}\n".format(len(adj_fnames), self.dst_dir))
+            datetimes_adj = [get_acquisition_date(p) for p in adj_fnames]
+            for d in group_files_by_date(datetimes_adj, adj_fnames):
+                for idx in range(len(self.timeline)):
+                    if self.timeline[idx]["id"] == d["id"] and idx < t_idx:
+                        self.timeline[idx]["adjusted"] = True
+                        found = True
+        if not found:
+            print("No previously adjusted data was found in {}\n".format(self.dst_dir))
+        return found
+
+    def load_data_from_dates(self, timeline_indices, input_dir, adjusted=False):
+        """The images of the given dates: new ones with their initial RPCs,
+        adjusted ones with their .rpc_adj from input_dir/rpcs_adj (counted
+        in n_adj)."""
         im_fnames = []
         for t_idx in timeline_indices:
             im_fnames.extend(self.timeline[t_idx]["fnames"])
-        flush_print("{} new images for bundle adjustment !".format(len(im_fnames)))
+        flush_print("{} {} images for bundle adjustment !".format(
+            len(im_fnames), "adjusted" if adjusted else "new"))
+        images = []
         if im_fnames:
-            rpcs = loader.load_rpcs_from_dir(im_fnames, os.path.join(self.dst_dir, "rpcs_init"),
-                                             extension="rpc", verbose=True)
-            self.images_new.extend(SatelliteImage(fn, rpc) for fn, rpc in zip(im_fnames, rpcs))
+            if adjusted:
+                rpc_dir, extension = os.path.join(input_dir, "rpcs_adj"), "rpc_adj"
+            else:
+                rpc_dir, extension = os.path.join(self.dst_dir, "rpcs_init"), "rpc"
+            rpcs = loader.load_rpcs_from_dir(im_fnames, rpc_dir, extension=extension, verbose=True)
+            images = [SatelliteImage(fn, rpc) for fn, rpc in zip(im_fnames, rpcs)]
+        if adjusted:
+            self.n_adj += len(im_fnames)
+            self.images_adj.extend(images)
+        else:
+            self.images_new.extend(images)
 
-    def set_ba_input_data(self, t_indices, input_dir, output_dir):
+    def load_prev_adjusted_dates(self, t_idx, input_dir, previous_dates=1):
+        """The `previous_dates` adjusted dates closest to t_idx."""
+        if self.check_adjusted_dates(input_dir, t_idx):
+            prev = [i for i, d in enumerate(self.timeline) if d["adjusted"]]
+            closest = sorted(prev, key=lambda x: abs(x - t_idx))[:previous_dates]
+            self.load_data_from_dates(closest, input_dir, adjusted=True)
+
+    def set_ba_input_data(self, t_indices, input_dir, output_dir, previous_dates):
+        """The pipeline's input: the previously adjusted images (first),
+        then the new ones of t_indices."""
         print("\nSetting bundle adjustment input data...\n")
         self.init_ba_input_data()
-        self.load_data_from_dates(t_indices)
-        self.ba_data = {"in_dir": input_dir, "out_dir": output_dir, "images": self.images_new}
+        if previous_dates > 0:
+            self.load_prev_adjusted_dates(min(t_indices), input_dir, previous_dates=previous_dates)
+        self.load_data_from_dates(t_indices, input_dir)
+        self.ba_data = {"in_dir": input_dir, "out_dir": output_dir,
+                        "images": self.images_adj + self.images_new}
 
     # ------------------------------------------------------------------
 
@@ -239,18 +286,63 @@ class Scene:
             t["adjusted"] = False
 
     def run_sequential_bundle_adjustment(self):
-        raise NotImplementedError(
-            "ba_method 'ba_sequential' is not ported yet (ROADMAP.md, Queue 1 item 8)")
+        """Date by date, each against its n_dates previously adjusted dates
+        (frozen); pts3d_adj/<date id>_pts3d_adj.ply for each date. fix_ref_cam
+        holds for the first date only (or every date with n_dates 0).
+        `date_stats` keeps each date's wall, tracks, iterations, n_adj, the
+        reprojection errors through the initial and the written RPCs, and
+        its pipeline's stage walls and LM counters."""
+        ba_dir = os.path.join(self.dst_dir, self.ba_method)
+        os.makedirs(ba_dir, exist_ok=True)
+        self.tracks_config["FT_predefined_pairs"] = []
+
+        stats = {"time": [], "time_FT": [], "tracks": [], "init_e": [], "ba_e": [], "iters": [],
+                 "n_adj": [], "reproj_after": [], "timing": [], "ft_timing": [], "ba_rounds": []}
+        fix_ref_cam_initial = self.fix_ref_cam
+        for idx, t_idx in enumerate(self.selected_timeline_indices):
+            self.set_ba_input_data([t_idx], ba_dir, ba_dir, self.n_dates)
+            self.fix_ref_cam = fix_ref_cam_initial and (idx == 0 or self.n_dates == 0)
+            n_adj = self.n_adj
+            running_time, time_FT, n_tracks, ba_e, _ = self.bundle_adjust()
+            pts_out = "{}/pts3d_adj/{}_pts3d_adj.ply".format(ba_dir, self.timeline[t_idx]["id"])
+            os.makedirs(os.path.dirname(pts_out), exist_ok=True)
+            shutil.copyfile(ba_dir + "/pts3d_adj.ply", pts_out)
+
+            init_e, after_e = self.compute_reprojection_error_before_and_after_bundle_adjust()
+            pipe = self.ba_pipeline
+            for k, v in zip(["time", "time_FT", "tracks", "init_e", "ba_e", "iters", "n_adj",
+                             "reproj_after", "timing", "ft_timing", "ba_rounds"],
+                            [running_time, time_FT, n_tracks, init_e, ba_e, pipe.ba_iters, n_adj,
+                             after_e, dict(pipe.timing), dict(pipe.ft_timing), pipe.ba_rounds]):
+                stats[k].append(v)
+            flush_print("({}/{}) {} adjusted in {:.2f} seconds, {} ({:.3f}, {:.3f})".format(
+                idx + 1, len(self.selected_timeline_indices), self.timeline[t_idx]["datetime"],
+                running_time, n_tracks, init_e, ba_e))
+        self.date_stats = stats
+        self.fix_ref_cam = fix_ref_cam_initial
+        if self.remove_FT_files:
+            self.rm_tmp_files_after_ba()
+        flush_print("All dates adjusted in {:.2f} seconds, mean reproj: ({:.3f}, {:.3f})".format(
+            sum(stats["time"]), float(np.mean(stats["init_e"])), float(np.mean(stats["ba_e"]))))
+        flush_print("Average BA iterations per date: {}".format(int(np.ceil(np.mean(stats["iters"])))))
 
     def run_global_bundle_adjustment(self):
-        raise NotImplementedError(
-            "ba_method 'ba_global' is not ported yet (ROADMAP.md, Queue 1 item 8)")
+        """Every selected date at once, pairs restricted to a date and its
+        next n_dates dates."""
+        ba_dir = os.path.join(self.dst_dir, self.ba_method)
+        os.makedirs(ba_dir, exist_ok=True)
+        self.tracks_config["FT_predefined_pairs"] = load_pairs_from_same_date_and_next_dates(
+            self.timeline, self.selected_timeline_indices, self.n_dates)
+        self._run_all_dates_at_once(ba_dir)
 
     def run_bruteforce_bundle_adjustment(self):
         ba_dir = os.path.join(self.dst_dir, self.ba_method)
         os.makedirs(ba_dir, exist_ok=True)
         self.tracks_config["FT_predefined_pairs"] = []
-        self.set_ba_input_data(self.selected_timeline_indices, ba_dir, ba_dir)
+        self._run_all_dates_at_once(ba_dir)
+
+    def _run_all_dates_at_once(self, ba_dir):
+        self.set_ba_input_data(self.selected_timeline_indices, ba_dir, ba_dir, 0)
         running_time, time_FT, n_tracks, ba_e, init_e = self.bundle_adjust()
         if self.remove_FT_files:
             self.rm_tmp_files_after_ba()
@@ -300,18 +392,45 @@ class Scene:
         for idx, t_idx in enumerate(self.selected_timeline_indices):
             flush_print("({}) {} --> {} views".format(
                 idx + 1, self.timeline[t_idx]["datetime"], self.timeline[t_idx]["n_images"]))
-        # the modes that are not ported raise before anything is reset
-        if self.ba_method == "ba_sequential":
-            self.run_sequential_bundle_adjustment()
-        elif self.ba_method == "ba_global":
-            self.run_global_bundle_adjustment()
         if self.reset:
             self.reset_ba_params()
 
-        if self.ba_method == "ba_bruteforce":
+        if self.ba_method == "ba_sequential":
+            flush_print("\nRunning sequential bundle adjustment !")
+            flush_print("Each date aligned with {} previous date(s)\n".format(self.n_dates))
+            self.run_sequential_bundle_adjustment()
+        elif self.ba_method == "ba_global":
+            flush_print("\nRunning global bundle adjustment !")
+            flush_print("Track pairs restricted to the same date and the next {} dates\n".format(
+                self.n_dates))
+            self.run_global_bundle_adjustment()
+        elif self.ba_method == "ba_bruteforce":
             flush_print("\nRunning bruteforce bundle adjustment !")
             self.run_bruteforce_bundle_adjustment()
         else:
             print("ba_method {} is not valid !".format(self.ba_method))
             print("accepted values are: [ba_sequential, ba_global, ba_bruteforce]")
             sys.exit()
+
+
+def load_pairs_from_same_date_and_next_dates(timeline, timeline_indices, next_dates=1):
+    """Image pairs (i, j) of the images of the selected dates, in their
+    order: every pair within a date, and every pair of a date with each of
+    its next `next_dates` dates."""
+    timeline_indices = [int(i) for i in timeline_indices]
+    n_dates = len(timeline_indices)
+    offsets = np.concatenate([[0], np.cumsum([timeline[t]["n_images"] for t in timeline_indices])])
+    init_pairs = []
+    for k, t_idx in enumerate(timeline_indices):
+        n_img = timeline[t_idx]["n_images"]
+        for i in range(n_img):
+            for j in range(i + 1, n_img):
+                init_pairs.append((int(offsets[k] + i), int(offsets[k] + j)))
+        for dk in range(1, next_dates + 1):
+            if k + dk >= n_dates:
+                continue
+            n_img2 = timeline[timeline_indices[k + dk]]["n_images"]
+            for i in range(n_img):
+                for j in range(n_img2):
+                    init_pairs.append((int(offsets[k] + i), int(offsets[k + dk] + j)))
+    return init_pairs

@@ -56,8 +56,8 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
     max_kp = None if tracks_config is None else config["FT_kp_max"]
     if config["FT_sift_detection"] != "tpu":
         raise NotImplementedError(
-            "FT_sift_detection={!r} is not ported yet; the port detects with its own "
-            "SIFT ('tpu')".format(config["FT_sift_detection"]))
+            "FT_sift_detection={!r} is not ported yet (ROADMAP.md, Queue 1 item 10); the "
+            "port detects with its own SIFT ('tpu')".format(config["FT_sift_detection"]))
 
     n = len(geotiff_paths)
     resolved = [None] * n

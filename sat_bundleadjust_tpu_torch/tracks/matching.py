@@ -115,8 +115,8 @@ def _check_method(method_cfg):
     """Raise for a FT_sift_matching the port does not run."""
     if method_cfg in ("lightglue", "local_window"):
         raise NotImplementedError(
-            "FT_sift_matching={!r} is not ported; use 'epipolar_based' or "
-            "'bruteforce'".format(method_cfg))
+            "FT_sift_matching={!r} is not ported yet (ROADMAP.md, Queue 1 item 10); use "
+            "'epipolar_based' or 'bruteforce'".format(method_cfg))
     if method_cfg not in _DEVICE_METHODS:
         raise ValueError("unknown FT_sift_matching: {}".format(method_cfg))
 

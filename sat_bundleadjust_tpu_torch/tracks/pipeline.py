@@ -40,7 +40,13 @@ class FeatureTracksPipeline:
         self.config["in_dir"] = self.input_dir
         self.config["out_dir"] = self.output_dir
         if self.config["FT_kp_aoi"] and self.aoi is not None:
-            raise NotImplementedError("FT_kp_aoi (AOI keypoint masks) is not ported yet")
+            raise NotImplementedError(
+                "FT_kp_aoi (AOI keypoint masks) is not ported yet (ROADMAP.md, Queue 1 item 10)")
+        # the backends that are not ported raise here, before any stage runs
+        if self.config["FT_sift_detection"] != "tpu":
+            ft_detection.detect_features_image_sequence([], None, None, self.config,
+                                                        device=self.device)
+        ft_matching._check_method(self.config["FT_sift_matching"])
         self.timing = {}
 
     def run_feature_detection(self):

@@ -3,9 +3,9 @@
 Counterpart of `sat_bundleadjust_tpu/utils/io.py` for one process:
 printing, ids, json, image size and pixels (cv2, then PIL), percentile
 equalization, the RPC files of a scene, the list/path savers, geojson, the
-`.ply` point clouds and the AOI of a set of images. The AOI keypoint masks
-(cv2) and the projection-matrix and predefined-matches savers wait for the
-modules that need them.
+`.ply` point clouds, the AOI of a set of images, the projection-matrix
+json files and the predefined-matches bundle. The AOI keypoint masks (cv2)
+wait for the opencv backend.
 """
 
 import json
@@ -119,14 +119,38 @@ def custom_equalization(im, mask=None, clip=True, percentiles=5):
     return (im - mi) / (ma - mi) * 255.0
 
 
+def save_projection_matrices(filenames, projection_matrices, crop_offsets):
+    """One json file per 3x4 matrix: its rows and the crop's size and
+    offset."""
+    for fn, P, offset in zip(filenames, projection_matrices, crop_offsets):
+        P = np.asarray(P)
+        save_dict_to_json({
+            "P": [P[0, :].tolist(), P[1, :].tolist(), P[2, :].tolist()],
+            "height": int(offset["height"]),
+            "width": int(offset["width"]),
+            "col_offset": int(offset["col0"]),
+            "row_offset": int(offset["row0"]),
+        }, fn)
+
+
 def save_list_of_pairs(path, list_of_pairs):
     np.save(path, np.array(list_of_pairs))
+
+
+def load_list_of_pairs(path):
+    arr = np.load(path).T.astype(int)
+    return list(zip(arr[0], arr[1]))
 
 
 def save_list_of_paths(path, paths):
     with open(path, "w") as f:
         for p in paths:
             f.write("%s\n" % p)
+
+
+def load_list_of_paths(path):
+    with open(path) as f:
+        return [x.strip() for x in f.readlines()]
 
 
 def save_rpcs(filenames, rpcs):
@@ -198,3 +222,20 @@ def load_aoi_from_multiple_images(images, verbose=False):
     if verbose:
         print("Defined aoi from union of all geotiff footprints")
     return combine_lonlat_geojson_borders([im.lonlat_geojson for im in images])
+
+
+def save_predefined_matches(input_dir, output_dir):
+    """A matches directory (features/, matches.npy, filenames.txt, as the
+    tracks front end writes them with FT_save) as a predefined-matches
+    bundle under output_dir/predefined_matches: the keypoints' (col, row,
+    scale), the match table and the filenames manifest."""
+    import glob
+    import shutil
+
+    predefined = os.path.join(output_dir, "predefined_matches")
+    os.makedirs(predefined + "/keypoints", exist_ok=True)
+    for fn in glob.glob(input_dir + "/features/*.npy"):
+        light = np.load(fn)[:, :3]
+        np.save(fn.replace(input_dir + "/features/", predefined + "/keypoints/"), light)
+    shutil.copyfile(os.path.join(input_dir, "matches.npy"), predefined + "/matches.npy")
+    shutil.copyfile(os.path.join(input_dir, "filenames.txt"), predefined + "/filenames.txt")

@@ -120,6 +120,13 @@ SCHUR_EDGE_CASES = {
     "ragged_chunk": (4, 301, 4, 3, False, True),
     "p1": (20, 1500, 5, 1, False, False),
     "p9": (30, 2000, 6, 9, False, False),
+    # the matrix camera models: affine R, T, K (8); perspective R, T, K (11)
+    "p8": (30, 2000, 6, 8, False, False),
+    "p10": (25, 1500, 5, 10, False, False),
+    "p11": (40, 2500, 6, 11, False, False),
+    # P = 11 over several pieces: a 33-float row (132 bytes) puts most slab
+    # and chunk starts off 16 bytes
+    "p11_long_chunks": (3, 9000, 3, 11, False, True),
     # long tracks: a point CTA's slab spans several shared-memory pieces
     "long_tracks": (60, 400, 40, 9, False, True),
     # long chunks: a camera CTA's chunk spans several pieces
@@ -177,6 +184,41 @@ def test_schur_wz_kernel_matches_plain(cuda, case):
     model, geo = schur_kernel_order(*(t.cpu().numpy() for t in (x, *args)))
     assert geo == op.geometry
     np.testing.assert_array_equal(wz1.cpu().numpy(), model)
+
+
+def _shifted(a, words):
+    """A contiguous copy of `a` whose data starts `words` 4-byte words past
+    a 16-byte boundary (a view into a larger buffer)."""
+    buf = torch.empty(a.numel() + 4, dtype=a.dtype, device=a.device)
+    base = (buf.data_ptr() // 4) % 4  # words past 16 bytes of element 0
+    k = (words - base) % 4
+    out = buf[k:k + a.numel()].view(a.shape)
+    out.copy_(a)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4 * words
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,words", [(8, 1), (11, 1), (11, 2), (11, 3)])
+def test_schur_wz_kernel_on_misaligned_operands(cuda, P, words):
+    """Both What layouts and both id tables starting 4, 8 or 12 bytes past
+    a 16-byte boundary, at P = 8 and 11: the staging offset puts the bulk
+    copies' aligned body on 16 bytes in shared memory whatever the row
+    width (33 floats at P = 11). The bits of the aligned call and of the
+    numpy model; 2e-6 of max|wz| against the plain version."""
+    args = tuple(t.to(cuda) for t in schur_operands(7, 3000, 5, P, full=False, seed=P))
+    M = args[2].shape[0]
+    x = torch.randn(M, P, dtype=torch.float32, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    aligned = smv.schur_wz(x, *args).clone()
+    moved = tuple(_shifted(a, words) for a in args)
+    wz = smv.schur_wz(x, *moved)
+    torch.cuda.synchronize()
+    assert torch.equal(wz, aligned)
+    model, _ = schur_kernel_order(*(t.cpu().numpy() for t in (x, *args)))
+    np.testing.assert_array_equal(wz.cpu().numpy(), model)
+    ref = smv.schur_wz_plain(x, *args)
+    assert float((wz - ref).abs().max()) <= 2e-6 * float(ref.abs().max())
 
 
 def _nn2_operands(device, B, n1, n2, seed=0, hi=256, empty_last=True):

@@ -84,6 +84,35 @@ def test_plain_matches_jax_twin_and_pallas_interpret(impl, n_cam, n_pts, drop, b
     assert np.abs(wz - pal).max() <= 3e-5 * scale
 
 
+@pytest.mark.parametrize("P", [8, 10, 11])
+def test_wide_camera_blocks_match_jax_twin_and_reference(P):
+    """P = 8 (affine R, T, K), 10 and 11 (perspective R, T, K): the plain
+    version and the numpy model of the kernels' order of work against the
+    JAX package's f64 twin and its jnp reference, on W blocks of width P
+    (seeded, on the scene's ragged observation structure) and the scene's
+    damped V^-1. The same bars as at P = 3: 2e-6 of max|wz| (f32 per-track
+    sums in another order; the reference's camera sums are f32 too)."""
+    s = _wz_system(37, 900, drop=300)
+    K = int(s["jprob"].pts_ind.shape[0])
+    W = jnp.asarray(np.random.default_rng(P).normal(size=(K, P, 3)).astype(np.float32))
+    Wh, c, meta = pmv.build_wh_operands(W, s["Vinv"], s["jprob"], s["M"], block_pts=128)
+    x = np.random.default_rng(1).normal(size=(s["M"], P)).astype(np.float32)
+    f64 = np.asarray(pmv.schur_wz_twin(jnp.asarray(x), Wh, c, meta, accum="f64"))
+    ref = np.asarray(pmv.schur_wz_reference(jnp.asarray(x), Wh, c, meta))
+    prob = s["tprob"]
+    W_pt, W_cm = tlm.fold_layouts(t(W), t(s["Vinv"]), prob)
+    args = (W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
+    plain = smv.schur_wz_plain(t(x), *args).numpy()
+    model, geo = schur_kernel_order(x, *(a.numpy() for a in args))
+    scale = np.abs(f64).max()
+    for wz in (plain, model):
+        assert wz.dtype == np.float32 and wz.shape == (s["M"], P)
+        assert np.abs(wz - f64).max() <= 2e-6 * scale
+        assert np.abs(wz - ref).max() <= 2e-6 * scale
+    assert np.abs(model - plain).max() <= 2e-6 * np.abs(plain).max()
+    assert geo == smv.plan(s["M"], s["N"], P, prob.cam_ind_pt.shape[1], prob.pts_ind_cam.shape[1])
+
+
 def test_operator_linear_and_zero_preserving():
     """A fixed linear operator (the CG contract); zero maps to zero, so
     sentinel slots contribute nothing."""
@@ -186,7 +215,7 @@ def test_bound_operator_on_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("fault,match", [
     ("W_pt_f64", "float32"), ("cam_ind_pt_i64", "int32"), ("W_cm_strided", "contiguous"),
-    ("pts_ind_cam_short", "shapes"), ("W_pt_wrong_P", "shapes"), ("p10", "outside"),
+    ("pts_ind_cam_short", "shapes"), ("W_pt_wrong_P", "shapes"), ("p12", "outside"),
     ("cam_ind_pt_flat", "shapes"),
 ])
 def test_bound_operator_refuses_at_bind(fault, match):
@@ -205,9 +234,9 @@ def test_bound_operator_refuses_at_bind(fault, match):
         pi = pi[:, :-1].contiguous()
     elif fault == "W_pt_wrong_P":
         W_pt = W_pt[:, :, :2].contiguous()
-    elif fault == "p10":
-        W_pt = torch.zeros(W_pt.shape[:2] + (10, 3))
-        W_cm = torch.zeros(W_cm.shape[:2] + (10, 3))
+    elif fault == "p12":
+        W_pt = torch.zeros(W_pt.shape[:2] + (12, 3))
+        W_cm = torch.zeros(W_cm.shape[:2] + (12, 3))
     else:
         ci = ci.reshape(-1)
     with pytest.raises(ValueError, match=match):

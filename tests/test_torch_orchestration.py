@@ -255,23 +255,31 @@ def _run(tmp_path, **extra):
 
 
 @pytest.mark.parametrize("extra, match", [
-    ({"ba_method": "ba_global"}, "ba_global.*Queue 1 item 8"),
-    ({"ba_method": "ba_sequential"}, "ba_sequential.*Queue 1 item 8"),
+    ({"FT_sift_detection": "opencv"}, "FT_sift_detection.*Queue 1 item 10"),
+    ({"FT_sift_matching": "lightglue"}, "lightglue.*Queue 1 item 10"),
     ({"distributed": True}, "distributed.*Queue 1 item 12"),
     ({"dem_path": "/nonexistent/dem.tif"}, "dem_path.*Queue 1 item 13"),
-    ({"cam_model": "affine"}, "affine.*Queue 1 item 9"),
-    ({"cam_model": "perspective"}, "perspective.*Queue 1 item 9"),
-    ({"predefined_matches": True}, "predefined_matches.*Queue 1 item 8"),
+    ({"FT_sift_matching": "local_window"}, "local_window.*Queue 1 item 10"),
+    ({"FT_kp_aoi": True, "aoi_geojson": "AOI"}, "FT_kp_aoi.*Queue 1 item 10"),
+    ({"ba_method": "ba_sequential", "FT_sift_matching": "lightglue"}, "lightglue.*Queue 1 item 10"),
 ])
 def test_unported_options_raise(tmp_path, monkeypatch, extra, match):
     """Each option that is not ported raises NotImplementedError naming its
-    ROADMAP item, before any track or solve runs."""
+    ROADMAP item, before any track or solve runs (also in the sequential
+    mode)."""
     from sat_bundleadjust_tpu_torch.tracks import pipeline as tpipe
 
     def refuse(*args, **kwargs):
         raise AssertionError("another route ran")
 
     monkeypatch.setattr(tpipe.FeatureTracksPipeline, "build_feature_tracks", refuse)
+    if extra.get("aoi_geojson") == "AOI":
+        from sat_bundleadjust_tpu_torch.utils.geo import geojson_polygon
+        from sat_bundleadjust_tpu_torch.utils.io import save_geojson
+
+        extra = dict(extra, aoi_geojson=str(tmp_path / "aoi.json"))
+        save_geojson(extra["aoi_geojson"], geojson_polygon(np.array(
+            [[-72.72, 11.01], [-72.70, 11.01], [-72.70, 11.03], [-72.72, 11.03]])))
     with pytest.raises(NotImplementedError, match=match):
         _run(tmp_path, **extra)
     assert make_alt_getter(None) is None

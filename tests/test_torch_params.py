@@ -93,13 +93,29 @@ def test_reconstruct_vars_matches_jax():
 
 
 def test_matrix_models_raise_not_implemented():
-    scene = jax_scene(n_cam=4, n_pts=20)
-    C = np.zeros((8, 20))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tparams.BAParams(C, scene["pts3d"], [np.eye(3, 4)] * 4, "affine", [], [np.zeros(3)] * 4)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        tparams.BAParams.from_obs_table([0], [0], np.zeros((1, 2)), np.zeros((1, 3)),
-                                        [np.eye(3, 4)], "perspective", [np.zeros(3)])
+    """The matrix camera models, which raised NotImplementedError until they
+    were ported, now build through both constructors the JAX package's
+    problem: the same parameter rows (1e-12 relative), layout and tables,
+    with no stacked RPCs."""
+    from sat_bundleadjust_tpu.ba.params import BAParams as JBAParams
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    for cam_model, params in (("affine", ["R", "T"]), ("perspective", ["R", "T", "K"])):
+        s = demo.make_matrix_scene(cam_model, n_cam=4, n_pts=20)
+        d = {"verbose": False, "correction_params": params}
+        C = np.full((8, 20), np.nan)
+        C[2 * s["cam_ind"], s["pts_ind"]] = s["pts2d"][:, 0]
+        C[2 * s["cam_ind"] + 1, s["pts_ind"]] = s["pts2d"][:, 1]
+        built = [
+            (cls(C, s["pts0"], s["cameras_init"], cam_model, s["pairs"], s["camera_centers"], d),
+             cls.from_obs_table(s["pts_ind"], s["cam_ind"], s["pts2d"], s["pts0"],
+                                s["cameras_init"], cam_model, s["camera_centers"], s["pairs"], d))
+            for cls in (JBAParams, tparams.BAParams)]
+        for jp, tp in zip(*built):
+            assert tp.rpcs is None and tp.n_params == jp.n_params
+            np.testing.assert_allclose(tp.cam_params, jp.cam_params, rtol=1e-12, atol=1e-15)
+            for name in ("pts_ind", "cam_ind", "pts2d", "pts3d", "cam_opt_mask"):
+                np.testing.assert_array_equal(getattr(tp, name), getattr(jp, name), err_msg=name)
 
 
 @pytest.mark.parametrize("seed,obs_per_pt", [(0, 4), (2, 3)])
