@@ -70,6 +70,18 @@ no result line, where CUDA is not available. It
      the CLI with cam_model "perspective" and R, T, K, COMMON_K on slice
      E's first date, which must write P_init/ (asked of the pipeline),
      P_adj/ and .rpc_adj files that hold slice D's bar;
+ 15. slice G: the CLI on slice E's first date (4 views) with an AOI over
+     the central half of the scene (aoi_geojson, FT_kp_aoi) and a DEM
+     (dem_path: a UTM GeoTIFF of a tilted plane whose nodes are exact in
+     float32): G1 with the opencv detector (FT_n_proc 4) and bruteforce
+     matching, so that the int8 2-NN kernel runs with its epipolar gate
+     off, G2 with the package's SIFT and epipolar_based matching. Each
+     must write 4 .rpc_adj files that hold slice D's bar, keep only
+     keypoints inside their masks (each mask 20-80% of its image), and set
+     each footprint's altitude to the plane's value at the image's RPC
+     centre within 1e-6 m; the int8 kernel is held against its plain
+     version at each run's largest chunk. It prints the keypoints per
+     image before and after the masks and the wall of every stage;
 
 and ends with a JSON line per kernel ({"kernels": [...]}) and the result
 line {"ok": true, "device": {...}}. Kernel launch counters are set to 0
@@ -124,6 +136,21 @@ SLICE_F_PARAMS = ["R", "T", "K", "COMMON_K"]
 SLICE_F_MAX_ITER = 30
 SLICE_F_REPROJ_BEFORE_MIN = 1.0
 SLICE_F_REPROJ_AFTER_MAX = 0.1
+# slice G: the CLI on slice E's first date (4 views of 2000x2000 px; slice D
+# has 10, cut to 4 for the run's time) with an AOI over the central half of
+# the scene (FT_kp_aoi) and a UTM DEM of the plane z = a + b * column + c *
+# row of its raster (res m a node, +-half m around the AOI's centre; every
+# node exact in float32); G1 the opencv detector with bruteforce matching
+# (the int8 2-NN kernel with its gate off), G2 the package's SIFT with
+# epipolar_based matching
+SLICE_G_DEM = {"res": 32.0, "half": 8000.0, "plane": (50.0, 1.0 / 64, -1.0 / 128)}
+SLICE_G_RUNS = {
+    "G1": dict(SLICE_D_CONFIG, FT_kp_aoi=True, FT_sift_detection="opencv",
+               FT_sift_matching="bruteforce", FT_n_proc=4),
+    "G2": dict(SLICE_D_CONFIG, FT_kp_aoi=True),
+}
+SLICE_G_MASK_SHARE = (0.2, 0.8)
+SLICE_G_ALT_TOL_M = 1e-6
 
 
 def log(*args):
@@ -1153,6 +1180,206 @@ def slice_f(dev, counters, kernels, root, img_dir):
     return out
 
 
+def slice_g_inputs(root, img_dir):
+    """Slice G's AOI (the central half, by area, of view 0's footprint at
+    the terrain's altitude) and DEM, written under root. Returns their
+    paths and the plane's value at (lon, lat) from its formula."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from sat_bundleadjust_tpu_torch.models.rpc import rpc_from_rpc_file, rpc_localization_np
+    from sat_bundleadjust_tpu_torch.utils import geo, tiffwrite
+    from sat_bundleadjust_tpu_torch.utils.io import save_geojson
+
+    e, d = SLICE_E, SLICE_G_DEM
+    rpc = rpc_from_rpc_file(sorted(glob.glob(os.path.join(img_dir, "*.rpc")))[0])
+    lon, lat = rpc_localization_np(rpc, np.array([0.0, e["w"], e["w"], 0.0]),
+                                   np.array([0.0, 0.0, e["h"], e["h"]]), np.full(4, e["alt"]))
+    c = np.array([lon.mean(), lat.mean()])
+    aoi_path = os.path.join(root, "slice_g_aoi.json")
+    save_geojson(aoi_path, geo.geojson_polygon(c + (np.stack([lon, lat], 1) - c) * np.sqrt(0.5)))
+
+    east, north = geo.utm_from_lonlat(c[:1], c[1:])
+    bbx = {"xmin": float(east[0]) - d["half"], "xmax": float(east[0]) + d["half"],
+           "ymin": float(north[0]) - d["half"], "ymax": float(north[0]) + d["half"]}
+    h, w = geo.utm_bbox_shape(bbx, d["res"])
+    jj, ii = np.meshgrid(np.arange(w), np.arange(h))
+    a, b, cr = d["plane"]
+    z = a + b * jj + cr * ii
+    assert np.array_equal(z.astype(np.float32), z), "the DEM's nodes must be exact in float32"
+    dem_path = os.path.join(root, "slice_g_dem.tif")
+    tiffwrite.write_georeferenced_raster_utm_bbox(
+        dem_path, z.astype(np.float32), bbx,
+        geo.epsg_code_from_utm_zone(geo.zonestring_from_lonlat(c[0], c[1])), d["res"])
+
+    def plane_at(lon, lat):
+        ee, nn = geo.utm_from_lonlat(np.atleast_1d(lon), np.atleast_1d(lat))
+        return a + b * (ee - bbx["xmin"]) / d["res"] + cr * (bbx["ymax"] - nn) / d["res"]
+
+    return aoi_path, dem_path, plane_at
+
+
+class LargestStagedChunk:
+    """While entered, keeps the int8 2-NN operands of the largest chunk
+    (B * n1 * n2) that the staged matcher assembles
+    (ops/match.staged_chunk_operands); they still go on to the kernel's
+    wrapper, which counts its launches."""
+
+    def __enter__(self):
+        from sat_bundleadjust_tpu_torch.ops import match as match_ops
+
+        self.module, self.assemble, self.args = match_ops, match_ops.staged_chunk_operands, None
+
+        def observe(staged, arrays):
+            ops = self.assemble(staged, arrays)
+            work = lambda a: a[0].shape[0] * a[0].shape[1] * a[1].shape[1]  # noqa: E731
+            if self.args is None or work(ops) > work(self.args):
+                self.args = ops
+            return ops
+
+        match_ops.staged_chunk_operands = observe
+        return self
+
+    def __exit__(self, *exc):
+        self.module.staged_chunk_operands = self.assemble
+
+
+def keypoints_inside(features, mask, backend):
+    """Which keypoints lie inside the mask, by the detector's own pixel
+    rule: cv2 tests the pixel of the rounded position (its
+    KeyPointsFilter::runByPixelsMask), the package's SIFT that of the
+    truncated one (tracks/detection._apply_mask)."""
+    import numpy as np
+
+    xy = features[~np.isnan(features[:, 0]), :2]
+    px = (xy + 0.5 if backend == "opencv" else xy).astype(np.int64)
+    px[:, 0] = np.clip(px[:, 0], 0, mask.shape[1] - 1)
+    px[:, 1] = np.clip(px[:, 1], 0, mask.shape[0] - 1)
+    return mask[px[:, 1], px[:, 0]] > 0
+
+
+def keypoints_without_masks(paths, backend, dev):
+    """Keypoints per image of the same detector without the masks, capped
+    at FT_kp_max as the run caps them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from sat_bundleadjust_tpu_torch.ops.sift import detect_sift_batch
+    from sat_bundleadjust_tpu_torch.tracks.detection import detect_opencv
+    from sat_bundleadjust_tpu_torch.utils.io import load_image
+
+    kp_max = SLICE_D_CONFIG["FT_kp_max"]
+    if backend == "opencv":
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            feats = list(pool.map(lambda p: detect_opencv(load_image(p, equalize=True)), paths))
+    else:
+        feats = detect_sift_batch([load_image(p).astype(np.float32) for p in paths],
+                                  max_kp=kp_max, device=dev)
+    return [min(f.shape[0], kp_max) for f in feats]
+
+
+def slice_g(dev, counters, root, img_dir):
+    """The CLI with the AOI masks and the DEM, with the opencv detector
+    (G1) and the package's SIFT (G2), on slice E's first date."""
+    import glob
+    import os
+
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
+    from sat_bundleadjust_tpu_torch.pipeline import default_altitude
+    from sat_bundleadjust_tpu_torch.utils.io import get_id
+
+    import cv2  # G1's detector: a machine without it fails here
+
+    log("slice G: cv2 {}; AOI the central half of the scene, DEM a plane {} (m, per node of "
+        "{} m)".format(cv2.__version__, SLICE_G_DEM["plane"], SLICE_G_DEM["res"]))
+    aoi_path, dem_path, plane_at = slice_g_inputs(root, img_dir)
+    frames = sorted(glob.glob(os.path.join(img_dir, "*.tif")))[:SLICE_E["views"]]
+    out = {}
+    for tag, cfg in SLICE_G_RUNS.items():
+        backend = cfg.get("FT_sift_detection", "tpu")
+        with LargestStagedChunk() as largest:
+            scene, wall, launches, ba_dir = run_cli(root, img_dir, tag, counters,
+                                                    aoi_geojson=aoi_path, dem_path=dem_path,
+                                                    timeline_indices=[0], **cfg)
+        pipe = scene.ba_pipeline
+        adj = glob.glob(os.path.join(ba_dir, "rpcs_adj", "*.rpc_adj"))
+        before, after = scene.compute_reprojection_error_before_and_after_bundle_adjust()
+        matvecs = sum(r["matvecs"] for r in pipe.ba_rounds)
+        kept, inside, share = [], [], []
+        for im in pipe.images:
+            iid = get_id(im.geotiff_path)
+            f = np.load(os.path.join(ba_dir, "matches", "features", iid + ".npy"))
+            m = np.load(os.path.join(ba_dir, "matches", "masks", iid + ".npy"))
+            ins = keypoints_inside(f, m, backend)
+            kept.append(int(ins.size))
+            inside.append(int(ins.sum()))
+            share.append(float(m.mean()))
+        alts = [(float(im.alt), float(plane_at(float(np.asarray(im.rpc.lon_offset)),
+                                                float(np.asarray(im.rpc.lat_offset)))[0]),
+                 default_altitude(im.rpc)) for im in pipe.images]
+        alt_err = max(abs(a - p) for a, p, _ in alts)
+        t0 = time.time()
+        unmasked = keypoints_without_masks(frames, backend, dev)
+        unmasked_s = time.time() - t0
+
+        # after the counters were read: the int8 kernel against its plain
+        # version at the run's largest chunk
+        args = largest.args
+        a = nm.nn2_batched_i8(*args)
+        plain = nm.nn2_plain(*args)
+        torch.cuda.synchronize()
+        gate = "off" if bool((args[6] >= 1e9).all()) else "on"
+        ms = cuda_ms(lambda: nm.nn2_batched_i8(*args), 20)
+        plain_ms = cuda_ms(lambda: nm.nn2_plain(*args), 1, rounds=3)
+        bound_ms, bound_by, ops, nbytes = nn2_bound(args[4], args[5], 128, PEAK_I8_TC_PER_S)
+
+        stages = dict(scene.timing)
+        stages.update(pipe.timing)
+        log("slice G {} ({}, {}): {}; tracks front end {}".format(
+            tag, backend, cfg.get("FT_sift_matching", "epipolar_based"), stage_line(stages),
+            "; ".join("{} {:.3f} s".format(k[:-2], v) for k, v in pipe.ft_timing.items())))
+        log("slice G {}: CLI {:.3f} s; {} .rpc_adj; reprojection through the re-read .rpc_adj "
+            "{:.4f} -> {:.4f} px; keypoints per image without the masks {} ({:.2f} s), kept {}, "
+            "inside their masks {}; mask shares {}; footprint altitudes {} m (plane {}, RPC offset "
+            "{}), max error {:.3g} m; LM rounds {}; kernel launches {} ({} matvecs)".format(
+                tag, wall, len(adj), before, after, unmasked, unmasked_s, kept, inside,
+                ["{:.3f}".format(v) for v in share], ["{:.6f}".format(v[0]) for v in alts],
+                ["{:.6f}".format(v[1]) for v in alts], [v[2] for v in alts], alt_err,
+                [(r["iterations"], r["matvecs"]) for r in pipe.ba_rounds], launches, matvecs))
+        log("slice G {}: int8 2-NN at the largest chunk (gate {}, B={} n1={} n2={}): bit-identical "
+            "to plain; kernel {:.4f} ms ({:.1f} TOP/s, {:.1%} of the bound), plain {:.4f} ms, bound "
+            "{:.4f} ms ({})".format(tag, gate, args[0].shape[0], args[0].shape[1],
+                                    args[1].shape[1], ms, ops / ms / 1e9, bound_ms / ms, plain_ms,
+                                    bound_ms, bound_by))
+        assert torch.equal(a, plain), "nn2_batched_i8 differs from its plain version"
+        assert gate == ("off" if backend == "opencv" else "on"), gate
+        assert len(adj) == SLICE_E["views"], adj
+        assert inside == kept and min(kept) > 0, (inside, kept)
+        assert all(SLICE_G_MASK_SHARE[0] < v < SLICE_G_MASK_SHARE[1] for v in share), share
+        assert alt_err < SLICE_G_ALT_TOL_M, alts
+        assert all(abs(p - d) > 0.1 for _, p, d in alts), alts
+        assert launches["nn2_batched_i8"] > 0, launches
+        assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
+        assert launches["schur_wz"] == matvecs > 0, (launches, matvecs)
+        assert before > SLICE_C_REPROJ_BEFORE_MIN, before
+        assert after < SLICE_C_REPROJ_AFTER_MAX, after
+        out[tag] = {"cli_s": wall, "stages_s": stages, "tracks_front_end_s": dict(pipe.ft_timing),
+                    "launches": launches, "matvecs": matvecs, "reproj_before": before,
+                    "reproj_after": after, "keypoints_without_masks": unmasked,
+                    "keypoints_kept": kept, "mask_shares": share, "footprint_alts": alts,
+                    "i8_largest_chunk": {"gate": gate, "B": args[0].shape[0],
+                                         "n1": args[0].shape[1], "n2": args[1].shape[1],
+                                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                         "bound_by": bound_by}}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full record as JSON to this file")
@@ -1229,6 +1456,7 @@ def main():
                                          SLICE_E["w"], render_s))
         rec["slice_e"] = slice_e(dev, counters, root, img_dir)
         rec["slice_f"] = slice_f(dev, counters, kernels, root, img_dir)
+        rec["slice_g"] = slice_g(dev, counters, root, img_dir)
     rec["schur_wz"].update({"F perspective": kernels["F perspective"],
                             "F affine": kernels["F affine"]})
     rec["total_s"] = time.time() - t_start
@@ -1249,7 +1477,9 @@ def main():
                  rec["slice_e"]["ba_global"]["launches"]["schur_wz"],
                  rec["slice_f"]["perspective"]["launches"]["schur_wz"],
                  rec["slice_f"]["affine"]["launches"]["schur_wz"],
-                 rec["slice_f"]["cli"]["launches"]["schur_wz"]]
+                 rec["slice_f"]["cli"]["launches"]["schur_wz"],
+                 rec["slice_g"]["G1"]["launches"]["schur_wz"],
+                 rec["slice_g"]["G2"]["launches"]["schur_wz"]]
     entries = [{
         "name": "schur_wz", "route": "cuda",
         "source": "sat_bundleadjust_tpu_torch/csrc/schur_matvec.cu",
@@ -1262,7 +1492,7 @@ def main():
         "library_ms": None,
         "at": "slice B shape (M=1000, K=800000, P=3), ms = device time, op_wall_ms through "
               "the bound operator; launches by slice A, B, C, D, E sequential, E global, "
-              "F perspective, F affine, F CLI {}; ".format(main_path) + other,
+              "F perspective, F affine, F CLI, G1, G2 {}; ".format(main_path) + other,
     }]
     replaces = {"nn2_batched_i8": "sat_bundleadjust_tpu/ops/pallas_match.py:240",
                 "nn2_batched": "sat_bundleadjust_tpu/ops/pallas_match.py:294",
@@ -1274,7 +1504,8 @@ def main():
             "replaces": where,
             "launches": (c["launches"][name] + rec["slice_d"]["launches"][name]
                          + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
-                         + rec["slice_f"]["cli"]["launches"][name]),
+                         + rec["slice_f"]["cli"]["launches"][name]
+                         + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,

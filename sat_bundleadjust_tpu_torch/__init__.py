@@ -17,7 +17,11 @@ package's outputs: rpcs_adj/*.rpc_adj, pts3d_adj.ply, cam_params/. It covers
   (`models`); the CG operator is a hand-written CUDA kernel
   (`ops.schur_matvec`, source `csrc/schur_matvec.cu`);
 * the refit of the adjusted RPCs (`ba.rpcfit`, batched f64 IRLS on the
-  device), the RPC files, and the scene driver and its outputs.
+  device), the RPC files, and the scene driver and its outputs;
+* the options of the tracks front end (the opencv detector, AOI keypoint
+  masks, DEM altitudes, the optional LightGlue matcher) and the side
+  modules: the stereo helpers (`models.stereo`), the geoid grid
+  (`utils.geoid`), profiling (`utils.profiling`) and `utils.vistools`.
 
 Conventions:
 * entry points take `device=`; the default is the CUDA card, and asking for

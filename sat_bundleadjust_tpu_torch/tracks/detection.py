@@ -1,16 +1,23 @@
 """Keypoint detection over an image sequence.
 
-Counterpart of `sat_bundleadjust_tpu/tracks/detection.py` on its "tpu"
-backend (the package's own scale-space SIFT, `ops/sift.py`; the reference
-name "s2p" is an alias): same-shape images are detected in batches on
-`device`, and every image's keypoints come out in the common layout, (N,
-132) float rows (col, row, scale, orientation, 128-d descriptor), sorted by
-descending scale and NaN-padded to FT_kp_max. One process; the npy cache of
-features/ is read and written as there. The "opencv" backend is not ported
-yet.
+Counterpart of `sat_bundleadjust_tpu/tracks/detection.py` for one process,
+with its two backends:
+* "tpu" (the reference name "s2p" is an alias): the package's own
+  scale-space SIFT (`ops/sift.py`); same-shape images are detected in
+  batches on `device`, and a mask keeps the keypoints that fall inside it;
+* "opencv": cv2 SIFT on the host, on percentile-equalized uint8 with the
+  mask passed to cv2, images spread over FT_n_proc threads (cv2 releases
+  the GIL). This is the detector the user chose, as in the JAX package;
+  what follows detection runs on `device` either way.
+Every image's keypoints come out in the common layout, (N, 132) float rows
+(col, row, scale, orientation, 128-d descriptor), sorted by descending
+scale and NaN-padded to FT_kp_max. The npy cache of features/ is read and
+written as there.
 """
 
 import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -40,28 +47,50 @@ def _apply_mask(features, mask):
     return features[inside]
 
 
+def detect_opencv(image, mask=None):
+    """cv2 SIFT on an equalized image: (N, 132) rows."""
+    import cv2
+
+    sift = cv2.SIFT_create()
+    kp, des = sift.detectAndCompute(
+        image.astype(np.uint8), None if mask is None else mask.astype(np.uint8))
+    if not kp:
+        return np.zeros((0, 132))
+    return np.array([[k.pt[0], k.pt[1], k.size, k.angle, *d] for k, d in zip(kp, des)])
+
+
+BACKENDS = ("tpu", "opencv")
+
+
+def check_backend(backend):
+    """Raise for a FT_sift_detection the port does not run."""
+    if backend not in BACKENDS:
+        raise ValueError("unknown FT_sift_detection: {}".format(backend))
+
+
 def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
-                                   tracks_config=None, device=None):
+                                   tracks_config=None, device=None, timing=None):
     """Detect keypoints over an image sequence, with the features/ npy cache.
 
     geotiff_paths: image paths (or arrays already in memory, see
     utils/io.load_image); mask_paths: optional per-image .npy masks;
     offsets: optional crop offsets. Returns a list of (FT_kp_max, 132)
-    arrays (unpadded when tracks_config is None)."""
+    arrays (unpadded when tracks_config is None). `timing` (a dict), if
+    given, receives detector_s: the wall of reading and detecting the
+    uncached images (equalization and cv2 for opencv, the SIFT batches for
+    tpu), without the caches."""
     from sat_bundleadjust_tpu_torch.ops.sift import detect_sift_batch
     from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
 
     dev = resolve_device(device)
     config = init_feature_tracks_config(tracks_config)
     max_kp = None if tracks_config is None else config["FT_kp_max"]
-    if config["FT_sift_detection"] != "tpu":
-        raise NotImplementedError(
-            "FT_sift_detection={!r} is not ported yet (ROADMAP.md, Queue 1 item 10); the "
-            "port detects with its own SIFT ('tpu')".format(config["FT_sift_detection"]))
+    backend = config["FT_sift_detection"]
+    check_backend(backend)
 
     n = len(geotiff_paths)
     resolved = [None] * n
-    pending = []  # (i, image, mask) still to detect
+    pending = []  # (i, path, offset, mask) still to detect
     for i, path in enumerate(geotiff_paths):
         if not config["FT_reset"] and "in_dir" in config:
             npy_in = os.path.join(config["in_dir"], "features/{}.npy".format(get_id(path)))
@@ -70,20 +99,39 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
                 continue
         offset_i = None if offsets is None else offsets[i]
         mask = None if mask_paths is None else np.load(mask_paths[i])
-        pending.append((i, loader.load_image(path, offset=offset_i, equalize=False), mask))
+        pending.append((i, path, offset_i, mask))
 
-    # same-shape images go through the pyramid together
-    by_shape = {}
-    for item in pending:
-        by_shape.setdefault(np.asarray(item[1]).shape, []).append(item)
-    thresh = float(config.get("FT_thresh_dog", 0.0133))
-    for group in by_shape.values():
-        feats_list = detect_sift_batch([np.asarray(im, dtype=np.float32) for _, im, _ in group],
-                                       thresh_dog=thresh, max_kp=max_kp, device=dev)
-        for (i, _, mask), feats in zip(group, feats_list):
-            if mask is not None and feats.shape[0] > 0:
-                feats = _apply_mask(feats, mask)
-            resolved[i] = _top_k_by_scale(feats, max_kp)
+    t0 = time.time()
+    if backend == "opencv":
+        def load_and_detect(item):
+            i, path, offset_i, mask = item
+            image = loader.load_image(path, offset=offset_i, equalize=True)
+            return i, _top_k_by_scale(detect_opencv(image, mask), max_kp)
+
+        n_proc = int(config.get("FT_n_proc", 1) or 1)
+        if n_proc > 1 and len(pending) > 1:
+            with ThreadPoolExecutor(max_workers=n_proc) as pool:
+                results = list(pool.map(load_and_detect, pending))
+        else:
+            results = [load_and_detect(item) for item in pending]
+        for i, feats in results:
+            resolved[i] = feats
+    else:
+        # same-shape images go through the pyramid together
+        by_shape = {}
+        for i, path, offset_i, mask in pending:
+            image = loader.load_image(path, offset=offset_i, equalize=False)
+            by_shape.setdefault(np.asarray(image).shape, []).append((i, image, mask))
+        thresh = float(config.get("FT_thresh_dog", 0.0133))
+        for group in by_shape.values():
+            feats_list = detect_sift_batch([np.asarray(im, dtype=np.float32) for _, im, _ in group],
+                                           thresh_dog=thresh, max_kp=max_kp, device=dev)
+            for (i, _, mask), feats in zip(group, feats_list):
+                if mask is not None and feats.shape[0] > 0:
+                    feats = _apply_mask(feats, mask)
+                resolved[i] = _top_k_by_scale(feats, max_kp)
+    if timing is not None:
+        timing["detector_s"] = time.time() - t0
 
     features = []
     for i, path in enumerate(geotiff_paths):

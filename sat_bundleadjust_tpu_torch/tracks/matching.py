@@ -13,7 +13,9 @@ The 2-NN stage follows the JAX package's dispatch (`ops/match.py`):
   not integers in 0..255) the host-packed f32 kernel runs instead, as the
   JAX package does on a TPU;
 * on the CPU each pair goes through `match_descriptors_2nn`, the JAX
-  package's CPU matcher (symmetric epipolar gate).
+  package's CPU matcher (symmetric epipolar gate);
+* FT_sift_matching "lightglue" (the optional LightGlue package,
+  `tracks/lightglue.py`) matches one pair at a time on `device`, as there.
 F init, RANSAC and the UTM filter are host numpy on both.
 """
 
@@ -30,6 +32,7 @@ from sat_bundleadjust_tpu_torch.models.cameras import generate_point_mesh
 from sat_bundleadjust_tpu_torch.models.rpc import rpc_localization_np, rpc_projection_np
 from sat_bundleadjust_tpu_torch.ops import match as match_ops
 from sat_bundleadjust_tpu_torch.ops.ransac import MIN_SAMPLES, ransac_fundamental_many
+from sat_bundleadjust_tpu_torch.tracks import lightglue
 from sat_bundleadjust_tpu_torch.utils import geo as geo_utils
 from sat_bundleadjust_tpu_torch.utils.io import get_id
 
@@ -112,12 +115,19 @@ def utm_bbox_indices(utm_i, utm_j, utm_polygon):
 
 
 def _check_method(method_cfg):
-    """Raise for a FT_sift_matching the port does not run."""
-    if method_cfg in ("lightglue", "local_window"):
+    """Raise for a FT_sift_matching that cannot run: local_window (as in
+    the JAX package), lightglue without its package, an unknown name."""
+    if method_cfg == "local_window":
+        # the reference's local-window matcher depends on an imscript
+        # binary (siftu.so) that it does not ship either
         raise NotImplementedError(
-            "FT_sift_matching={!r} is not ported yet (ROADMAP.md, Queue 1 item 10); use "
-            "'epipolar_based' or 'bruteforce'".format(method_cfg))
-    if method_cfg not in _DEVICE_METHODS:
+            "FT_sift_matching='local_window' requires the imscript siftu "
+            "binary, which the reference does not ship; use "
+            "'epipolar_based' or 'bruteforce'")
+    if method_cfg == "lightglue":
+        if not lightglue.lightglue_available():
+            raise ImportError(lightglue.MISSING_PACKAGE)
+    elif method_cfg not in _DEVICE_METHODS:
         raise ValueError("unknown FT_sift_matching: {}".format(method_cfg))
 
 
@@ -149,16 +159,26 @@ def match_kp_within_utm_polygon(features_i, features_j, utm_i, utm_j, utm_polygo
         matches_poly, n_ratio, n_ransac = match_ops.match_pair(
             fi, fj, F=F, abs_thr=tracks_config["FT_abs_thr"], method="absolute", **common)
         n = [n_ratio, n_ransac]
+    elif method_cfg == "lightglue":
+        matches_poly, n_matches, n_final = lightglue.lightglue_matching(fi, fj, **common)
+        n = [n_matches, n_final]
     else:
         _check_method(method_cfg)
 
-    if matches_poly is None:
-        n.append(0)
-        return None, n
-    matches_ij = np.stack([idx_i[matches_poly[:, 0]], idx_j[matches_poly[:, 1]]], axis=1)
-    matches_ij = filter_matches_inconsistent_utm_coords(matches_ij, utm_i, utm_j)
-    n.append(matches_ij.shape[0])
+    matches_ij = _remap_and_filter(matches_poly, idx_i, idx_j, utm_i, utm_j)
+    n.append(0 if matches_ij is None else matches_ij.shape[0])
     return matches_ij, n
+
+
+def _remap_and_filter(matches_poly, idx_i, idx_j, utm_i, utm_j):
+    """Matches between the keypoints of two UTM boxes -> matches between
+    the full keypoint arrays, through the UTM filter (None stays None)."""
+    if matches_poly is None:
+        return None
+    matches_ij = np.stack([idx_i[matches_poly[:, 0]], idx_j[matches_poly[:, 1]]], axis=1)
+    if matches_ij.shape[0] == 0:
+        return matches_ij
+    return filter_matches_inconsistent_utm_coords(matches_ij, utm_i, utm_j)
 
 
 def _virtual_mesh(h, w, rpc, n=5):
@@ -265,7 +285,7 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
         _MEM_TOKEN_SESSION, id(x))
     method_cfg = tracks_config["FT_sift_matching"]
     _check_method(method_cfg)
-    staged_intent = dev.type == "cuda"
+    staged_intent = dev.type == "cuda" and method_cfg in _DEVICE_METHODS
 
     frame_cache = _FrameCache()
     utm_cache = _FrameCache()
@@ -315,8 +335,16 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
         to_match_frames.append((i, j))
     timing["prep_s"] = timing.get("prep_s", 0.0) + time.time() - t0
 
-    # pass 2: the 2-NN stage of every pair at once, then RANSAC and UTM
-    if to_match:
+    # pass 2: the 2-NN stage of every pair at once, then RANSAC and UTM;
+    # LightGlue matches one pair at a time, as in the JAX package
+    if to_match and method_cfg == "lightglue":
+        t0 = time.time()
+        for (idx, fi, fj, idx_i, idx_j, utm_i, utm_j) in to_match:
+            m, _, _ = lightglue.lightglue_matching(fi, fj, ransac_thr=tracks_config["FT_ransac"],
+                                                   device=dev)
+            resolved[idx] = _remap_and_filter(m, idx_i, idx_j, utm_i, utm_j)
+        timing["finalize_s"] = timing.get("finalize_s", 0.0) + time.time() - t0
+    elif to_match:
         pair_F = [None if method_cfg in ("bruteforce", "flann") else F[idx]
                   for (idx, *_rest) in to_match]
         kw = {"rel_thr": float(tracks_config["FT_rel_thr"]),

@@ -5,7 +5,9 @@ with the same stages, the same npy cache layout (features/, features_utm/,
 pairwise_matches/) and the same in-memory handoff when FT_save is False.
 Detection and the 2-NN matching run on `device` (default: the card); the F
 init, RANSAC, UTM coordinates and track building are host numpy, as there.
-AOI keypoint masks (FT_kp_aoi) are not ported yet.
+With FT_kp_aoi and an AOI, each image's AOI mask is written to
+<output_dir>/masks/<id>.npy (cropped to its offset) and restricts its
+keypoints, whichever the detector.
 """
 
 import os
@@ -39,14 +41,22 @@ class FeatureTracksPipeline:
         self.config = init_feature_tracks_config(tracks_config)
         self.config["in_dir"] = self.input_dir
         self.config["out_dir"] = self.output_dir
-        if self.config["FT_kp_aoi"] and self.aoi is not None:
-            raise NotImplementedError(
-                "FT_kp_aoi (AOI keypoint masks) is not ported yet (ROADMAP.md, Queue 1 item 10)")
-        # the backends that are not ported raise here, before any stage runs
-        if self.config["FT_sift_detection"] != "tpu":
-            ft_detection.detect_features_image_sequence([], None, None, self.config,
-                                                        device=self.device)
+        # a backend the port does not run raises here, before any stage runs
+        ft_detection.check_backend(self.config["FT_sift_detection"])
         ft_matching._check_method(self.config["FT_sift_matching"])
+        self.mask_paths = None
+        if self.config["FT_kp_aoi"] and self.aoi is not None:
+            masks_dir = os.path.join(self.output_dir, "masks")
+            os.makedirs(masks_dir, exist_ok=True)
+            self.mask_paths = []
+            for im in self.images:
+                mask_path = os.path.join(masks_dir, loader.get_id(im.geotiff_path) + ".npy")
+                y0, x0 = int(im.offset["row0"]), int(im.offset["col0"])
+                h, w = int(im.offset["height"]), int(im.offset["width"])
+                mask = loader.get_binary_mask_from_aoi_lonlat_within_image(
+                    h, w, im.rpc, self.aoi, alt=im.alt or 0.0)
+                np.save(mask_path, mask[y0:y0 + h, x0:x0 + w])
+                self.mask_paths.append(mask_path)
         self.timing = {}
 
     def run_feature_detection(self):
@@ -56,7 +66,8 @@ class FeatureTracksPipeline:
         image_paths = [im.geotiff_path for im in self.images]
         offsets = [im.offset for im in self.images]
         feats_mem = ft_detection.detect_features_image_sequence(
-            image_paths, None, offsets, self.config, device=self.device)
+            image_paths, self.mask_paths, offsets, self.config, device=self.device,
+            timing=self.timing)
 
         if not self.config["FT_save"]:
             self.features = list(feats_mem)

@@ -1,7 +1,6 @@
 """Geographic coordinate systems and GeoJSON-style polygon helpers.
 
-A copy of `sat_bundleadjust_tpu/utils/geo.py` without `geoid_to_ellipsoid`
-(the geoid grid support is not ported yet).
+A copy of `sat_bundleadjust_tpu/utils/geo.py`.
 
 Internalizes the roles of `pyproj`/`utm`/shapely used by the reference's
 bundle_adjust/geo_utils.py (none of which exist in this environment). The
@@ -293,3 +292,31 @@ def measure_squared_km_from_lonlat_geojson(lonlat_geojson):
     """Reference: geo_utils.py:285-292."""
     utm_geojson = utm_geojson_from_lonlat_geojson(lonlat_geojson)
     return geojson_to_polygon(utm_geojson).area * 1e-6
+
+
+def geoid_to_ellipsoid(lat, lon, z, geoid_pgm=None):
+    """EGM96 geoid height -> WGS84 ellipsoid height.
+
+    The undulation comes from a GeographicLib EGM96 .pgm grid
+    (utils/geoid.py; pass geoid_pgm or set SATBA_GEOID_PGM), with pyproj
+    and PROJ as the fallback where the grid is absent and pyproj is
+    installed. Raises if neither source is available, rather than
+    returning wrong heights."""
+    import os
+
+    from sat_bundleadjust_tpu_torch.utils.geoid import geoid_undulation
+
+    if geoid_pgm or os.environ.get("SATBA_GEOID_PGM"):
+        return np.asarray(z) + geoid_undulation(lat, lon, grid_path=geoid_pgm)
+    try:
+        import pyproj
+    except ImportError as e:
+        raise NotImplementedError(
+            "geoid_to_ellipsoid needs an EGM96 source: set SATBA_GEOID_PGM "
+            "to a GeographicLib egm96 .pgm grid, or install pyproj with "
+            "PROJ data"
+        ) from e
+    ellipsoid = pyproj.CRS.from_epsg(4979)
+    geoid = pyproj.CRS("EPSG:4326+5773")
+    transformer = pyproj.Transformer.from_crs(geoid, ellipsoid)
+    return transformer.transform(lat, lon, z)[-1]

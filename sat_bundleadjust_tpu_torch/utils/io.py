@@ -3,9 +3,9 @@
 Counterpart of `sat_bundleadjust_tpu/utils/io.py` for one process:
 printing, ids, json, image size and pixels (cv2, then PIL), percentile
 equalization, the RPC files of a scene, the list/path savers, geojson, the
-`.ply` point clouds, the AOI of a set of images, the projection-matrix
-json files and the predefined-matches bundle. The AOI keypoint masks (cv2)
-wait for the opencv backend.
+`.ply` point clouds, the AOI of a set of images and its keypoint mask
+inside an image (cv2 polygon fill), the projection-matrix json files and
+the predefined-matches bundle.
 """
 
 import json
@@ -117,6 +117,29 @@ def custom_equalization(im, mask=None, clip=True, percentiles=5):
         ma = mi + 1
     im = np.clip(im, mi, ma)
     return (im - mi) / (ma - mi) * 255.0
+
+
+def mask_from_polygons(polygons, im_size):
+    """uint8 mask of im_size, 1 inside the polygons (cv2.fillPoly on their
+    vertices rounded to whole pixels)."""
+    import cv2
+
+    img_mask = np.zeros(im_size, np.uint8)
+    exteriors = [np.array(p.coords).round().astype(np.int32) for p in polygons]
+    cv2.fillPoly(img_mask, exteriors, 1)
+    return img_mask
+
+
+def get_binary_mask_from_aoi_lonlat_within_image(height, width, geotiff_rpc, aoi_lonlat, alt=0.0):
+    """Mask of the AOI (a lon/lat geojson polygon) inside an image: the
+    AOI's vertices projected through the RPC at altitude alt (host f64)."""
+    from sat_bundleadjust_tpu_torch.models.rpc import rpc_projection_np
+    from sat_bundleadjust_tpu_torch.utils.geo import geojson_polygon, geojson_to_polygon
+
+    lons, lats = np.array(aoi_lonlat["coordinates"][0]).T
+    cols, rows = rpc_projection_np(geotiff_rpc, lons, lats, np.full(len(lons), float(alt)))
+    poly = geojson_to_polygon(geojson_polygon(np.vstack((cols, rows)).T))
+    return mask_from_polygons([poly], (height, width))
 
 
 def save_projection_matrices(filenames, projection_matrices, crop_offsets):

@@ -439,3 +439,106 @@ def test_rpc_refit_on_the_card_matches_cpu(cuda):
         pg = np.stack(rpc_projection_np(rg, LO.ravel(), LA.ravel(), AL.ravel()), 1)
         assert np.abs(pg - pc).max() < 1e-4
     assert stats["rounds"] >= 1
+
+
+@pytest.mark.cuda
+def test_cv2_descriptors_through_the_int8_kernel(cuda):
+    """cv2 SIFT descriptors (the opencv detector's) of two rendered 512x512
+    frames, staged as the matcher stages them, through nn2_batched_i8 with
+    the epipolar gate off (bruteforce) and on (epipolar_based): bit-identical
+    to the plain version, one launch each; the gate only removes candidates
+    (no nearest distance falls) and changes some rows' neighbours."""
+    import cv2  # noqa: F401  (the opencv detector's; the card's machine has it)
+
+    from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
+    from sat_bundleadjust_tpu_torch.ops import match as mo
+    from sat_bundleadjust_tpu_torch.tracks import detection, matching
+    from sat_bundleadjust_tpu_torch.utils.io import custom_equalization
+
+    ims, rpcs = demo.render_synthetic_images(n_cam=2, h=512, w=512, seed=0, alt=0.0, device=cuda)
+    feats = [detection.detect_opencv(custom_equalization((im * 255).astype(np.uint8)
+                                                         .astype(np.float64))) for im in ims]
+    assert min(f.shape[0] for f in feats) > 500
+    staged = mo.stage_frames_for_matching(feats, device=cuda)
+    assert staged is not None, "cv2 descriptors must be integers in 0..255"
+    off = {"col0": 0, "row0": 0, "height": 512, "width": 512}
+    F = matching.init_F_pairs_batched([(0, 1)], [SatelliteImage(im, r, offset=dict(off))
+                                                 for im, r in zip(ims, rpcs)])[0]
+    idx = [(np.arange(feats[0].shape[0]), np.arange(feats[1].shape[0]))]
+    found = {}
+    for gate, pair_F in (("off", None), ("on", F)):
+        (chunk, n1, n2), = mo.staged_chunks(idx)
+        ops = mo.staged_chunk_operands(staged, mo.staged_chunk_arrays(
+            chunk, n1, n2, [(0, 1)], idx, [pair_F], mo.EPIPOLAR_THR))
+        before = nm.nn2_batched_i8.launches
+        out = nm.nn2_batched_i8(*ops)
+        ref = nm.nn2_plain(*ops)
+        torch.cuda.synchronize()
+        assert nm.nn2_batched_i8.launches == before + 1
+        assert torch.equal(out, ref), gate
+        found[gate] = out[0, 0]
+    assert bool((found["on"] >= found["off"]).all()) and bool((found["on"] > found["off"]).any())
+
+
+@pytest.mark.cuda
+def test_stereo_on_the_card_matches_cpu(cuda):
+    """models/stereo on the card against the CPU, rtol 1e-12 (the card's and
+    the host's libm differ in the last bits of sin, cos and atan2). Heights
+    and the GSD are differences of ECEF coordinates of ~6.4e6 m, so their
+    rounding floor is an ulp of those (~1e-9 m; 1.9e-9 m measured on an
+    H100): they are held to 1e-12 of the Earth's radius."""
+    from sat_bundleadjust_tpu_torch.models import stereo
+
+    r1 = demo.make_synthetic_rpc(view_dx=250.0, img_halfsize=(200, 150))
+    r2 = demo.make_synthetic_rpc(view_dx=-180.0, view_dy=120.0, img_halfsize=(200, 150))
+
+    def close(a, b, scale=None):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        scale = max(float(np.abs(b).max()), 1e-300) if scale is None else scale
+        np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-12 * scale)
+
+    earth_radius = 6.4e6
+
+    for d in (cuda, "cpu"):
+        assert stereo.gsd_from_rpc(r1, device=d) > 0
+    close(stereo.geodesic_bounding_box(r1, 10, 20, 370, 260, device=cuda),
+          stereo.geodesic_bounding_box(r1, 10, 20, 370, 260, device="cpu"))
+    x, y, z = np.linspace(0, 400, 9), np.linspace(0, 300, 9), np.linspace(-100, 300, 9)
+    got = stereo.find_corresponding_point(r1, r2, x, y, z, device=cuda)
+    want = stereo.find_corresponding_point(r1, r2, x, y, z, device="cpu")
+    assert got[0].device.type == cuda.type
+    close(got[0].cpu(), want[0])
+    close(got[1].cpu(), want[1])
+    for a, b in zip(stereo.ground_control_points(r1, 0, 0, 400, 300, -50.0, 250.0, 3, device=cuda),
+                    stereo.ground_control_points(r1, 0, 0, 400, 300, -50.0, 250.0, 3, device="cpu")):
+        close(a, b)
+    m = stereo.matches_from_rpc(r1, r2, 0, 0, 400, 300, 5, device=cuda)
+    close(m, stereo.matches_from_rpc(r1, r2, 0, 0, 400, 300, 5, device="cpu"))
+    h_gpu, e_gpu = stereo.compute_height(r1, r2, *m.T, device=cuda)
+    h_cpu, e_cpu = stereo.compute_height(r1, r2, *m.T, device="cpu")
+    close(h_gpu, h_cpu, scale=earth_radius)
+    np.testing.assert_allclose(e_gpu, e_cpu, rtol=0, atol=1e-9 * 400)
+    close(stereo.gsd_from_rpc(r1, z=120.0, device=cuda),
+          stereo.gsd_from_rpc(r1, z=120.0, device="cpu"), scale=earth_radius)
+
+
+@pytest.mark.cuda
+def test_device_trace_on_the_card(cuda, tmp_path, monkeypatch):
+    """utils/profiling.device_trace with SATBA_PROFILE_DIR set writes a
+    Chrome trace that holds the region's CUDA kernels."""
+    import glob
+    import json
+
+    from sat_bundleadjust_tpu_torch.utils.profiling import device_trace
+
+    monkeypatch.setenv("SATBA_PROFILE_DIR", str(tmp_path))
+    a = torch.randn(512, 512, device=cuda)
+    with device_trace("card"):
+        for _ in range(3):
+            a = torch.tanh(a @ a)
+    files = glob.glob(str(tmp_path / "card" / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert len(kernels) >= 6, len(kernels)

@@ -1,14 +1,16 @@
 """Parity of the port's orchestration with the JAX package's: the camera
 connectivity checks, track ranking and selection, the scene driver
 (dates, the three rpc_src values), the environment knobs
-SATBA_CG_COARSE_K and SATBA_TRIANG_CHUNK, and the options that are not
-ported, which must raise with their ROADMAP item instead of running
+SATBA_CG_COARSE_K and SATBA_TRIANG_CHUNK, and the options that cannot
+run, which must raise before any track or solve instead of running
 another route.
 """
 
 import datetime
+import glob
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -254,25 +256,39 @@ def _run(tmp_path, **extra):
     return sat_bundleadjust_tpu_torch.main(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("extra, match", [
-    ({"FT_sift_detection": "opencv"}, "FT_sift_detection.*Queue 1 item 10"),
-    ({"FT_sift_matching": "lightglue"}, "lightglue.*Queue 1 item 10"),
-    ({"distributed": True}, "distributed.*Queue 1 item 12"),
-    ({"dem_path": "/nonexistent/dem.tif"}, "dem_path.*Queue 1 item 13"),
-    ({"FT_sift_matching": "local_window"}, "local_window.*Queue 1 item 10"),
-    ({"FT_kp_aoi": True, "aoi_geojson": "AOI"}, "FT_kp_aoi.*Queue 1 item 10"),
-    ({"ba_method": "ba_sequential", "FT_sift_matching": "lightglue"}, "lightglue.*Queue 1 item 10"),
-])
-def test_unported_options_raise(tmp_path, monkeypatch, extra, match):
-    """Each option that is not ported raises NotImplementedError naming its
-    ROADMAP item, before any track or solve runs (also in the sequential
-    mode)."""
+# the ids are the names these cases had while each option raised
+# NotImplementedError naming its ROADMAP item
+UNPORTED_IDS = ["extra0-FT_sift_detection.*Queue 1 item 10", "extra1-lightglue.*Queue 1 item 10",
+                "extra2-distributed.*Queue 1 item 12", "extra3-dem_path.*Queue 1 item 13",
+                "extra4-local_window.*Queue 1 item 10", "extra5-FT_kp_aoi.*Queue 1 item 10",
+                "extra6-lightglue.*Queue 1 item 10"]
+
+
+@pytest.mark.parametrize("extra, error, match", [
+    ({"FT_sift_detection": "opencv"}, AssertionError, "another route ran"),
+    ({"FT_sift_matching": "lightglue"}, ImportError, "LightGlue package"),
+    ({"distributed": True}, NotImplementedError, "distributed.*Queue 1 item 12"),
+    ({"dem_path": "/nonexistent/dem.tif"}, FileNotFoundError, "dem.tif"),
+    ({"FT_sift_matching": "local_window"}, NotImplementedError, "imscript siftu binary"),
+    ({"FT_kp_aoi": True, "aoi_geojson": "AOI"}, AssertionError, "another route ran"),
+    ({"ba_method": "ba_sequential", "FT_sift_matching": "lightglue"}, ImportError,
+     "LightGlue package"),
+], ids=UNPORTED_IDS)
+def test_unported_options_raise(tmp_path, monkeypatch, extra, error, match):
+    """The options that cannot run raise before any track or solve runs
+    (also in the sequential mode): the multi-device solve, not ported
+    (NotImplementedError naming its ROADMAP item); local_window, which the
+    JAX package does not run either (its NotImplementedError); lightglue
+    without its package (the JAX package's ImportError); a DEM that is not
+    there. The options ported since (opencv, FT_kp_aoi with an AOI) set up
+    and reach the tracks front end, stubbed here to raise."""
     from sat_bundleadjust_tpu_torch.tracks import pipeline as tpipe
 
     def refuse(*args, **kwargs):
         raise AssertionError("another route ran")
 
     monkeypatch.setattr(tpipe.FeatureTracksPipeline, "build_feature_tracks", refuse)
+    monkeypatch.setitem(sys.modules, "lightglue", None)
     if extra.get("aoi_geojson") == "AOI":
         from sat_bundleadjust_tpu_torch.utils.geo import geojson_polygon
         from sat_bundleadjust_tpu_torch.utils.io import save_geojson
@@ -280,8 +296,11 @@ def test_unported_options_raise(tmp_path, monkeypatch, extra, match):
         extra = dict(extra, aoi_geojson=str(tmp_path / "aoi.json"))
         save_geojson(extra["aoi_geojson"], geojson_polygon(np.array(
             [[-72.72, 11.01], [-72.70, 11.01], [-72.70, 11.03], [-72.72, 11.03]])))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         _run(tmp_path, **extra)
+    if extra.get("FT_kp_aoi"):
+        # the AOI masks are written when the tracks front end is set up
+        assert glob.glob(str(tmp_path / "**" / "masks" / "*.npy"), recursive=True)
     assert make_alt_getter(None) is None
 
 
