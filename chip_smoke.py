@@ -82,6 +82,21 @@ no result line, where CUDA is not available. It
      centre within 1e-6 m; the int8 kernel is held against its plain
      version at each run's largest chunk. It prints the keypoints per
      image before and after the masks and the wall of every stage;
+ 16. slice H: the multi-device solve (parallel/), in child processes of
+     this script (`--rank`), each phase's ranks killed and the run failed
+     when one fails or does not end in time. H1: slice B's problem through
+     parallel/dist_solver on one rank with NCCL (H1a) and on two gloo
+     ranks sharing the card (H1b): the shard plan, LM and CG iterations,
+     all-reduces per CG iteration, wall per LM iteration and the share of
+     it in collectives (the device synchronized around each); the ranks'
+     cameras bit-identical, schur_wz launches equal to the matvecs on
+     every rank, the error within 1e-3 px of slice B's, and shard 0's
+     Schur operator held against its plain version. H2: the CLI with
+     "distributed": true on slice E's first date on two gloo ranks, one log
+     each; each rank detects only its own images, rank 0 alone writes, the
+     re-read .rpc_adj go below 0.1 px and project a ground grid within
+     1e-2 px of a one-process run's; int8 2-NN launches on both ranks, no
+     f32 one;
 
 and ends with a JSON line per kernel ({"kernels": [...]}) and the result
 line {"ok": true, "device": {...}}. Kernel launch counters are set to 0
@@ -150,6 +165,14 @@ SLICE_G_RUNS = {
     "G2": dict(SLICE_D_CONFIG, FT_kp_aoi=True),
 }
 SLICE_G_MASK_SHARE = (0.2, 0.8)
+# slice H: the distributed solve (slice B's problem) within 1e-3 px of slice
+# B's one-device error; the CLI across two ranks on slice E's first date
+# below 0.1 px through its .rpc_adj, which project a ground grid within
+# 1e-2 px of the one-process run's; each phase's ranks must end in time
+SLICE_H_BAR_PX = 1e-3
+SLICE_H2_REPROJ_AFTER_MAX = 0.1
+SLICE_H2_GRID_PX = 1e-2
+SLICE_H_TIMEOUT_S = 300
 SLICE_G_ALT_TOL_M = 1e-6
 
 
@@ -1380,10 +1403,334 @@ def slice_g(dev, counters, root, img_dir):
     return out
 
 
+def spawn_ranks(phase, world, args, timeout):
+    """Run `python3 chip_smoke.py --rank phase <rank> <world> <port> *args`
+    for every rank (each writes to its own log file) and wait for them:
+    when a rank fails or the deadline passes, the others are killed and the
+    run fails. Returns the ranks' outputs."""
+    import os
+    import socket
+    import subprocess
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        log_f = tempfile.TemporaryFile("w+")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", phase, str(r), str(world),
+             str(port), *map(str, args)], stdout=log_f, stderr=subprocess.STDOUT, text=True),
+            log_f))
+    deadline = time.time() + timeout
+    failed = None
+    try:
+        while any(p.poll() is None for p, _ in procs):
+            bad = [r for r, (p, _) in enumerate(procs) if p.poll() not in (None, 0)]
+            if bad:
+                failed = "rank {} exited with {}".format(bad[0], procs[bad[0]][0].returncode)
+                break
+            if time.time() > deadline:
+                failed = "ranks still running after {} s".format(timeout)
+                break
+            time.sleep(0.2)
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = []
+        for p, log_f in procs:
+            p.wait()
+            log_f.seek(0)
+            outs.append(log_f.read())
+            log_f.close()
+    for r, out in enumerate(outs):
+        for line in out.splitlines()[-6:]:
+            log("  [{} rank {}] {}".format(phase, r, line[:300]))
+    if failed is None and any(p.returncode != 0 for p, _ in procs):
+        failed = "a rank exited with {}".format([p.returncode for p, _ in procs])
+    assert failed is None, "{}: {}\n{}".format(phase, failed, "\n".join(
+        "--- rank {} ---\n{}".format(r, out[-6000:]) for r, out in enumerate(outs)))
+    return outs
+
+
+def shard_schur_check(solver):
+    """The shard's Schur operator (SchurOperator, the kernels) against
+    schur_wz_plain on the shard's own operands at its first LM step, as
+    check_schur_wz does, and its times per call (CUDA events). No
+    collective: one rank runs it alone."""
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import lm
+    from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
+
+    p, prob = solver.p, solver.prob
+    dev = solver.mesh.device
+    cam0 = torch.as_tensor(p.opt_block(), device=dev)
+    pts0 = torch.as_tensor(p.pts3d, device=dev)
+    r, J_cam, J_pt = solver.local_jacobians(cam0, pts0)
+    cfg = lm.LMConfig(schur_mode="cg")
+    _, g_cam, g_pt, _, V, W = lm._normal_blocks(r, J_cam, J_pt, prob, p.n_cam, solver.n_loc, cfg)
+    Vinv = lm._inv3x3(lm._damp(V, 1e-4))
+    scale = lm._schur_rhs(g_cam, g_pt, W, Vinv, prob, p.n_cam).abs().max()
+    W_pt, W_cm = lm.fold_layouts((W / torch.sqrt(scale)).float(), Vinv.float(), prob)
+    args = (W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
+    x = torch.randn(p.n_cam, p.n_params, dtype=torch.float32, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    op = smv.SchurOperator(*args)
+    wz = op(x).clone()
+    plain = smv.schur_wz_plain(x, *args)
+    torch.cuda.synchronize()
+    scale = float(plain.abs().max())
+    err = float((wz - plain).abs().max())
+    assert bool(torch.isfinite(wz).all()) and err <= 2e-6 * scale, (err, scale)
+    k_shard = int((solver.obs["weights"] > 0).sum())
+    return {"K": k_shard, "L": solver.n_loc, "Tp": int(W_pt.shape[1]), "Tc": int(W_cm.shape[1]),
+            "max_abs_err": err, "rel_err": err / scale, "op_wall_ms": cuda_ms(lambda: op(x), 100),
+            "plain_ms": cuda_ms(lambda: smv.schur_wz_plain(x, *args), 5, rounds=3)}
+
+
+def h1_rank(rank, world, port, backend, out_dir):
+    """One rank of H1: slice B's problem solved over the ranks."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
+    from sat_bundleadjust_tpu_torch.parallel import multihost
+    from sat_bundleadjust_tpu_torch.parallel.dist_solver import (
+        make_distributed_solver,
+        run_distributed_ba,
+    )
+    from sat_bundleadjust_tpu_torch.parallel.mesh import make_mesh
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    multihost.initialize("127.0.0.1:{}".format(port), int(world), int(rank), backend=backend)
+    dev = torch.device("cuda")
+    t0 = time.time()
+    scene = demo.make_scene_arrays(n_cam=1000, n_pts=200000, seed=0, device=dev)
+    p = demo.scene_to_baparams(scene)
+    solver = make_distributed_solver(p, mesh=make_mesh(), time_collectives=True)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    obs_index = solver.obs_index
+    plan = {"obs_per_shard": [int(v) for v in (obs_index >= 0).sum(axis=1)],
+            "K_pad": int(obs_index.shape[1])}
+    tracks = torch.tensor([int((solver.obs["track_global"] < p.n_pts).sum())], device=dev)
+    if world > 1:
+        parts = [torch.empty_like(tracks) for _ in range(int(world))]
+        torch.distributed.all_gather(parts, tracks)
+        tracks = torch.cat(parts)
+    plan["tracks_per_shard"] = tracks.tolist()
+    shard = shard_schur_check(solver) if int(rank) == 0 else None
+    # warm-up (first calls into cuBLAS and cuSOLVER), then the timed run
+    run_distributed_ba(p, {"max_iter": 1}, solver=solver)
+    smv.schur_wz.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    _, (cam, _), info = run_distributed_ba(p, {"max_iter": SLICE_B_MAX_ITER}, solver=solver)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = smv.schur_wz.launches
+    its = info["iterations"]
+    op_reduces = info["allreduces"] - 7 * its - 1
+    rec = {"rank": int(rank), "backend": backend, "world": int(world), "setup_s": setup_s,
+           "plan": plan, "iterations": its, "cg_iterations": info["cg_iterations"],
+           "matvecs": info["matvecs"], "allreduces": info["allreduces"],
+           "allreduces_per_cg_iteration": op_reduces / max(info["cg_iterations"], 1),
+           "wall_s": wall, "wall_per_lm_iteration_s": wall / max(its, 1),
+           "collective_s": info["collective_s"], "collective_share": info["collective_s"] / wall,
+           "reproj_before_mean": float(np.mean(info["err0"])),
+           "reproj_after_mean": float(np.mean(info["err_fin"])), "schur_wz_launches": launches,
+           "shard_schur": shard}
+    np.save(os.path.join(out_dir, "h1_{}_{}_{}_cam.npy".format(backend, world, rank)),
+            cam.cpu().numpy())
+    with open(os.path.join(out_dir, "h1_{}_{}_{}.json".format(backend, world, rank)), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def h2_rank(rank, world, port, cfg_path, out_dir):
+    """One rank of H2: the CLI with "distributed": true (its own log file),
+    with the images it detects and its writes counted."""
+    import os
+
+    import torch
+
+    from sat_bundleadjust_tpu_torch import cli
+    from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
+    from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
+    from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.parallel import multihost
+    from sat_bundleadjust_tpu_torch.pipeline import BundleAdjustmentPipeline
+
+    # two ranks share the card: gloo (NCCL takes one rank per device); the
+    # CLI's own initialize() then finds no SATBA_* variable and leaves it
+    multihost.initialize("127.0.0.1:{}".format(port), int(world), int(rank), backend="gloo")
+    seen = {"images": 0, "writes": 0}
+    detect, save = sift.detect_sift_batch, BundleAdjustmentPipeline.save_corrected_cameras
+
+    def counted_detect(images, *args, **kwargs):
+        seen["images"] += len(images)
+        return detect(images, *args, **kwargs)
+
+    def counted_save(self):
+        seen["writes"] += 1
+        return save(self)
+
+    sift.detect_sift_batch = counted_detect
+    BundleAdjustmentPipeline.save_corrected_cameras = counted_save
+    counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz]
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scene = cli.main([cfg_path])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    pipe = scene.ba_pipeline
+    before, after = scene.compute_reprojection_error_before_and_after_bundle_adjust()
+    rec = {"rank": int(rank), "cli_s": wall, "seen": seen,
+           "launches": {k.__name__: k.launches for k in counters},
+           "matvecs": sum(r["matvecs"] for r in pipe.ba_rounds),
+           "distributed_rounds": ["allreduces" in r for r in pipe.ba_rounds],
+           "rounds": [(r["iterations"], r["matvecs"], r["allreduces"]) for r in pipe.ba_rounds],
+           "tracks": int(pipe.C.shape[1]), "reproj_before": before, "reproj_after": after,
+           "stages_s": dict(pipe.timing)}
+    with open(os.path.join(out_dir, "h2_{}.json".format(rank)), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def slice_h(dev, counters, root, img_dir, slice_b_reproj):
+    """The distributed solve (H1) and the CLI across two ranks (H2), each
+    rank a child process of this script."""
+    import glob
+    import os
+
+    import numpy as np
+
+    from sat_bundleadjust_tpu_torch.models.rpc import (
+        rpc_from_rpc_file,
+        rpc_localization_np,
+        rpc_projection_np,
+    )
+
+    out_dir = os.path.join(root, "slice_h")
+    os.makedirs(out_dir)
+    out = {}
+    for tag, backend, world in (("H1a", "nccl", 1), ("H1b", "gloo", 2)):
+        t0 = time.time()
+        spawn_ranks("h1", world, [backend, out_dir], SLICE_H_TIMEOUT_S)
+        recs = []
+        for r in range(world):
+            with open(os.path.join(out_dir, "h1_{}_{}_{}.json".format(backend, world, r))) as f:
+                recs.append(json.load(f))
+        cams = [np.load(os.path.join(out_dir, "h1_{}_{}_{}_cam.npy".format(backend, world, r)))
+                for r in range(world)]
+        r0 = recs[0]
+        sh = r0["shard_schur"]
+        log("slice H {} ({} rank(s), {}): shards: observations {}, tracks {} (K_pad {}); "
+            "{} LM iterations, {} CG iterations, {} matvecs, {:.3f} all-reduces per CG "
+            "iteration ({} in all); wall {:.3f} s ({:.4f} s per LM iteration), collectives "
+            "{:.3f} s ({:.1%} of the wall); reprojection {:.4f} -> {:.4f} px (slice B one "
+            "device: {:.4f}); schur_wz launches per rank {}; set-up {:.2f} s; child processes "
+            "{:.1f} s".format(
+                tag, world, backend, r0["plan"]["obs_per_shard"], r0["plan"]["tracks_per_shard"],
+                r0["plan"]["K_pad"], r0["iterations"], r0["cg_iterations"], r0["matvecs"],
+                r0["allreduces_per_cg_iteration"], r0["allreduces"], r0["wall_s"],
+                r0["wall_per_lm_iteration_s"], r0["collective_s"], r0["collective_share"],
+                r0["reproj_before_mean"], r0["reproj_after_mean"], slice_b_reproj,
+                [r["schur_wz_launches"] for r in recs], r0["setup_s"], time.time() - t0))
+        log("slice H {}: shard 0's Schur operator (K {}, L {}, Tp {}, Tc {}) vs plain {:.2e} of "
+            "max|wz|; {:.5f} ms per call through the bound operator, plain {:.4f} ms".format(
+                tag, sh["K"], sh["L"], sh["Tp"], sh["Tc"], sh["rel_err"], sh["op_wall_ms"],
+                sh["plain_ms"]))
+        assert all(np.array_equal(c, cams[0]) for c in cams), "{}: the ranks' cam differ".format(tag)
+        assert all(r["schur_wz_launches"] == r["matvecs"] > 0 for r in recs), recs
+        assert all(r["iterations"] == r0["iterations"] for r in recs), recs
+        assert abs(r0["reproj_after_mean"] - slice_b_reproj) <= SLICE_H_BAR_PX, (
+            r0["reproj_after_mean"], slice_b_reproj)
+        assert sum(r0["plan"]["obs_per_shard"]) == 800000, r0["plan"]
+        out[tag] = {"ranks": recs}
+
+    # H2: the one-process reference of slice E's first date, then the CLI
+    # with "distributed": true across two ranks
+    ref_scene, ref_wall, ref_launches, ref_dir = run_cli(root, img_dir, "h2_reference", counters,
+                                                         timeline_indices=[0], **SLICE_D_CONFIG)
+    cfg = dict(SLICE_D_CONFIG, timeline_indices=[0], distributed=True, geotiff_dir=img_dir,
+               rpc_dir=img_dir, output_dir=os.path.join(root, "out_h2"))
+    cfg_path = os.path.join(root, "config_h2.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t0 = time.time()
+    spawn_ranks("h2", 2, [cfg_path, out_dir], SLICE_H_TIMEOUT_S)
+    wall = time.time() - t0
+    recs = []
+    for r in range(2):
+        with open(os.path.join(out_dir, "h2_{}.json".format(r))) as f:
+            recs.append(json.load(f))
+    ba_dir = os.path.join(cfg["output_dir"], "ba_bruteforce")
+    files = sorted(glob.glob(os.path.join(ba_dir, "rpcs_adj", "*.rpc_adj")))
+    ref_files = sorted(glob.glob(os.path.join(ref_dir, "rpcs_adj", "*.rpc_adj")))
+    logs = sorted(os.path.basename(f) for f in glob.glob(os.path.join(cfg["output_dir"], "*.log")))
+    # the ground grid: a 9 x 9 grid of each image's pixels localized at the
+    # terrain's altitude through the one-process file
+    gap = 0.0
+    cols, rows = np.meshgrid(np.linspace(0, SLICE_E["w"], 9), np.linspace(0, SLICE_E["h"], 9))
+    alts = np.full(cols.size, SLICE_E["alt"])
+    for fa, fb in zip(files, ref_files):
+        a, b = rpc_from_rpc_file(fa), rpc_from_rpc_file(fb)
+        lon, lat = rpc_localization_np(b, cols.ravel(), rows.ravel(), alts)
+        pa = np.stack(rpc_projection_np(a, lon, lat, alts), axis=1)
+        pb = np.stack(rpc_projection_np(b, lon, lat, alts), axis=1)
+        gap = max(gap, float(np.abs(pa - pb).max()))
+    launches = {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+    ref_before, ref_after = ref_scene.compute_reprojection_error_before_and_after_bundle_adjust()
+    log("slice H H2 (CLI, 2 gloo ranks, slice E date 1): child processes {:.1f} s (CLI {} s per "
+        "rank); images detected per rank {}, save_corrected_cameras per rank {}; logs {}; {} "
+        ".rpc_adj; reprojection through the re-read .rpc_adj {:.4f} -> {:.4f} px (one process: "
+        "{:.4f} -> {:.4f} px, CLI {:.3f} s); ground grid against the one-process files: max {:.2e} "
+        "px; LM rounds per rank {}; kernel launches {} (per rank {}), matvecs per rank {}".format(
+            wall, ["{:.2f}".format(r["cli_s"]) for r in recs], [r["seen"]["images"] for r in recs],
+            [r["seen"]["writes"] for r in recs], logs, len(files), recs[0]["reproj_before"],
+            recs[0]["reproj_after"], ref_before, ref_after, ref_wall, gap,
+            [r["rounds"] for r in recs], launches, [r["launches"] for r in recs],
+            [r["matvecs"] for r in recs]))
+    n = SLICE_E["views"]
+    assert [r["seen"]["images"] for r in recs] == [n // 2, n // 2], recs
+    assert [r["seen"]["writes"] for r in recs] == [1, 0], recs
+    assert logs == ["bundle_adjust.log", "bundle_adjust.p1.log"], logs
+    assert all(r["distributed_rounds"] and all(r["distributed_rounds"]) for r in recs), recs
+    assert len(files) == n and [os.path.basename(f) for f in files] == [
+        os.path.basename(f) for f in ref_files], (files, ref_files)
+    assert recs[0]["reproj_before"] > SLICE_C_REPROJ_BEFORE_MIN, recs[0]["reproj_before"]
+    assert recs[0]["reproj_after"] < SLICE_H2_REPROJ_AFTER_MAX, recs[0]["reproj_after"]
+    assert gap < SLICE_H2_GRID_PX, gap
+    assert all(r["launches"]["nn2_batched_i8"] > 0 for r in recs), recs
+    assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
+    assert all(r["launches"]["schur_wz"] == r["matvecs"] > 0 for r in recs), recs
+    out["H2"] = {"ranks": recs, "child_s": wall, "launches": launches, "grid_gap_px": gap,
+                 "reference": {"cli_s": ref_wall, "launches": ref_launches,
+                               "reproj_before": ref_before, "reproj_after": ref_after}}
+    return out
+
+
+def rank_main(argv):
+    """A child process of slice H: `--rank h1|h2 <rank> <world> <port> ...`."""
+    phase, rank, world, port, *rest = argv
+    {"h1": h1_rank, "h2": h2_rank}[phase](int(rank), int(world), int(port), *rest)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="write the full record as JSON to this file")
+    ap.add_argument("--rank", nargs="+", help=argparse.SUPPRESS)  # a child of slice H
     args = ap.parse_args()
+    if args.rank:
+        return rank_main(args.rank)
     t_start = time.time()
 
     import torch
@@ -1457,6 +1804,8 @@ def main():
         rec["slice_e"] = slice_e(dev, counters, root, img_dir)
         rec["slice_f"] = slice_f(dev, counters, kernels, root, img_dir)
         rec["slice_g"] = slice_g(dev, counters, root, img_dir)
+        rec["slice_h"] = slice_h(dev, counters, root, img_dir,
+                                 rec["slice_b"]["l2"]["reproj_after_mean"])
     rec["schur_wz"].update({"F perspective": kernels["F perspective"],
                             "F affine": kernels["F affine"]})
     rec["total_s"] = time.time() - t_start
@@ -1479,7 +1828,11 @@ def main():
                  rec["slice_f"]["affine"]["launches"]["schur_wz"],
                  rec["slice_f"]["cli"]["launches"]["schur_wz"],
                  rec["slice_g"]["G1"]["launches"]["schur_wz"],
-                 rec["slice_g"]["G2"]["launches"]["schur_wz"]]
+                 rec["slice_g"]["G2"]["launches"]["schur_wz"],
+                 sum(r["schur_wz_launches"] for r in rec["slice_h"]["H1a"]["ranks"]),
+                 sum(r["schur_wz_launches"] for r in rec["slice_h"]["H1b"]["ranks"]),
+                 rec["slice_h"]["H2"]["reference"]["launches"]["schur_wz"],
+                 rec["slice_h"]["H2"]["launches"]["schur_wz"]]
     entries = [{
         "name": "schur_wz", "route": "cuda",
         "source": "sat_bundleadjust_tpu_torch/csrc/schur_matvec.cu",
@@ -1492,7 +1845,8 @@ def main():
         "library_ms": None,
         "at": "slice B shape (M=1000, K=800000, P=3), ms = device time, op_wall_ms through "
               "the bound operator; launches by slice A, B, C, D, E sequential, E global, "
-              "F perspective, F affine, F CLI, G1, G2 {}; ".format(main_path) + other,
+              "F perspective, F affine, F CLI, G1, G2, H1a, H1b (both ranks), H2 reference, "
+              "H2 (both ranks) {}; ".format(main_path) + other,
     }]
     replaces = {"nn2_batched_i8": "sat_bundleadjust_tpu/ops/pallas_match.py:240",
                 "nn2_batched": "sat_bundleadjust_tpu/ops/pallas_match.py:294",
@@ -1505,7 +1859,9 @@ def main():
             "launches": (c["launches"][name] + rec["slice_d"]["launches"][name]
                          + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
                          + rec["slice_f"]["cli"]["launches"][name]
-                         + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])),
+                         + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])
+                         + rec["slice_h"]["H2"]["reference"]["launches"][name]
+                         + rec["slice_h"]["H2"]["launches"][name]),
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,

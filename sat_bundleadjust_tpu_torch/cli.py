@@ -8,6 +8,13 @@ scene config, `--timeline` to list the acquisition dates and exit, and
 It runs on the CUDA card and raises where CUDA is not available; from
 Python, `sat_bundleadjust_tpu_torch.main(config, device="cpu")` runs the
 same chain on the CPU.
+
+Several processes (one per card): start the same command in each, with
+SATBA_COORDINATOR, SATBA_NUM_PROCESSES and SATBA_PROCESS_ID set, or under
+torchrun; `parallel.multihost.initialize()` joins them before any work, and
+the config's "distributed" key routes the solve over them. Each process
+logs to its own file: bundle_adjust.log for rank 0, bundle_adjust.p<rank>.log
+for the others.
 """
 
 import argparse
@@ -28,9 +35,14 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     from sat_bundleadjust_tpu_torch import resolve_device
+    from sat_bundleadjust_tpu_torch.parallel import multihost
+    from sat_bundleadjust_tpu_torch.parallel.mesh import world_rank
     from sat_bundleadjust_tpu_torch.timeseries import Scene
     from sat_bundleadjust_tpu_torch.utils.io import load_dict_from_json
 
+    # several processes: join the process group (and pin this rank's card)
+    # before any work; a no-op for one process
+    multihost.initialize()
     device = resolve_device()
     if args.timeline:
         scene = Scene(args.config, device=device)
@@ -44,7 +56,9 @@ def main(argv=None):
 
     out_dir = load_dict_from_json(args.config)["output_dir"]
     os.makedirs(out_dir, exist_ok=True)
-    log_path = os.path.join(out_dir, "bundle_adjust.log")
+    rank = world_rank()
+    log_path = os.path.join(out_dir, "bundle_adjust.log" if rank == 0
+                            else "bundle_adjust.p{}.log".format(rank))
     print("Running bundle adjustment; log at {}".format(log_path))
     stdout, stderr = sys.stdout, sys.stderr
     with open(log_path, "w") as log_file:

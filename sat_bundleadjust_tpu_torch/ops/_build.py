@@ -4,10 +4,14 @@ Each `csrc/<name>.cu` becomes `csrc/build/lib<name>.so` (a plain C
 interface, no PyTorch headers), compiled for sm_90a at first use. `build`
 starts one nvcc per source, all at once, and keeps each compiler log
 beside its library (`lib<name>.log`). The build directory is git-ignored; a
-library older than its source, or without its log, is rebuilt.
+library older than its source, or without its log, is rebuilt. Processes
+that build at once (the ranks of a distributed run) take turns on an
+exclusive lock of the build directory, so that a library is built once; the
+lock is released when its holder ends, whatever the way.
 """
 
 import ctypes
+import fcntl
 import os
 import shutil
 import subprocess
@@ -64,6 +68,12 @@ def build(names=None):
     its compiler output."""
     names = sources() if names is None else list(names)
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(names)
+
+
+def _build_locked(names):
     nvcc = _nvcc()
     procs, logs = {}, {}
     for name in names:

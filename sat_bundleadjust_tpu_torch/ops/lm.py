@@ -350,13 +350,19 @@ def tied_tail_projector(m, P, tie_tail):
 
 def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
                     cg_rtol=1e-2, tie_tail=0, x0=None, coarse=True, coarse_k=1,
-                    matvec_impl="auto", stats=None):
+                    matvec_impl="auto", stats=None, reduce=None):
     """Matrix-free preconditioned CG on the Schur complement, in float32.
 
     matvec(x) = U x - W V^-1 W^T x. LM only needs a descent direction, so
     the budget is truncated (cg_iters) with forcing term cg_rtol. With
     tie_tail the projector of tied_tail_projector is applied to b, to every
-    operator result and to every preconditioner application."""
+    operator result and to every preconditioner application.
+
+    reduce: the sum over the shards of a distributed solve (an all-reduce,
+    parallel/dist_solver.py), where the JAX package takes its psum: each
+    shard applies its own U_d and wz and the operator result is summed, and
+    so are the block-Jacobi diagonal and the coarse E. b arrives summed.
+    Every value the loop tests is then the same on every rank."""
     if matvec_impl not in MATVECS:
         raise ValueError("matvec must be one of {}, got {!r}".format(MATVECS, matvec_impl))
     stats = new_stats() if stats is None else stats
@@ -396,6 +402,8 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
     def matvec(x):
         stats["matvecs"] += 1
         out = sm.mv(U_d, x) - wz_of(x)
+        if reduce is not None:
+            out = reduce(out)
         return out * m + x * (1.0 - m)
 
     # block-Jacobi preconditioner on the true Schur diagonal
@@ -405,6 +413,8 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
     else:
         Y = sm.mm(W, Vinv[prob.pts_ind])
         S_diag = U_d - _seg_sum_cam(sm.mbt(Y, W), prob, n_cam)
+    if reduce is not None:
+        S_diag = reduce(S_diag)
     eye_p = torch.eye(P, dtype=f32, device=dev)
     prec, info = torch.linalg.inv_ex(S_diag + eye_p * 1e-12)
     prec = torch.where((info == 0)[:, None, None], prec, torch.full_like(prec, math.nan))
@@ -414,6 +424,8 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
         E, Zg = coarse_schur_E(U_d, W, Vinv, prob, m, n_pts,
                                W_pt=W_pt if dual_layout else None,
                                n_clusters=G)
+        if reduce is not None:
+            E = reduce(E)
         Einv = coarse_inverse(E.reshape(G * P, G * P))
 
     proj = tied_tail_projector(m, P, tie_tail)
@@ -524,13 +536,20 @@ def default_cg_iters(n_cam):
 
 
 def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=None,
-            x0_cam=None, stats=None):
+            x0_cam=None, stats=None, reduce=None):
     """One damped Schur-complement solve. Returns (dcam (M, P), dpt (N, 3)).
 
-    x0_cam: CG warm start (the previous step's dcam); ignored by "dense"."""
+    x0_cam: CG warm start (the previous step's dcam); ignored by "dense".
+    reduce: the sum over the shards of a distributed solve (see
+    _cg_schur_solve), taken where the JAX package takes its psum: g_cam,
+    the right-hand side and, inside the CG, the operator results, the
+    block-Jacobi diagonal and the coarse E. The normal blocks stay local and
+    are damped per shard; a reduced solve is always the CG."""
     r, g_cam, g_pt, U, V, W = _normal_blocks(
         r, J_cam, J_pt, prob, n_cam, n_pts, cfg, loss=loss, f_scale=f_scale
     )
+    if reduce is not None:
+        g_cam = reduce(g_cam)
     dt = U.dtype
     U_d = _damp(U, lam)
     V_d = _damp(V, lam)
@@ -541,8 +560,12 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
     Vinv = _inv3x3(V_d)
 
     b = _schur_rhs(g_cam, g_pt, W, Vinv, prob, n_cam)
+    if reduce is not None:
+        # the W V^-1 g_pt part of b is the shard's own; -g_cam was summed
+        # already, so it is added back before the sum and taken off after
+        b = reduce(b + g_cam) - g_cam
     cmask = prob.cam_opt_mask.to(dt)
-    if cfg.schur_mode == "dense" and not cfg.tie_tail:
+    if cfg.schur_mode == "dense" and not cfg.tie_tail and reduce is None:
         solve = _dense_mxu_schur_solve if prob.obs_at is not None else _dense_schur_solve
         dcam = solve(U_d, W, Vinv, b, prob, n_cam, cmask)
     else:
@@ -550,7 +573,7 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
             U_d, W, Vinv, b, prob, n_cam, cmask,
             cfg.cg_iters or default_cg_iters(n_cam),
             cg_rtol=cfg.cg_rtol, tie_tail=cfg.tie_tail, x0=x0_cam, coarse=cfg.cg_coarse,
-            coarse_k=cfg.cg_coarse_k, matvec_impl=cfg.matvec, stats=stats,
+            coarse_k=cfg.cg_coarse_k, matvec_impl=cfg.matvec, stats=stats, reduce=reduce,
         )
 
     # back-substitute tie points: dp = -V^-1 (g_pt + W^T dcam)
@@ -560,6 +583,10 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
     # a non-finite step (failed factorization, indefinite CG) becomes a zero
     # step, which the driver treats as a rejected iteration
     finite = torch.isfinite(dcam.sum()) & torch.isfinite(dpt.sum())
+    if reduce is not None:
+        # dpt is the shard's own: every rank takes the step only if every
+        # shard's is finite, so that the ranks' cameras stay the same
+        finite = reduce((~finite).to(dt).reshape(1))[0] == 0
     dcam = torch.where(finite, dcam, torch.zeros_like(dcam))
     dpt = torch.where(finite, dpt, torch.zeros_like(dpt))
     return dcam, dpt

@@ -139,12 +139,14 @@ def match_pair(features_i, features_j, F=None, rel_thr=0.6, abs_thr=250.0,
                              accepted.cpu().numpy(), ransac_thr)
 
 
-def pack_pairs(pair_feats, pair_F, epipolar_thr=EPIPOLAR_THR, n1=None, n2=None):
+def pack_pairs(pair_feats, pair_F, epipolar_thr=EPIPOLAR_THR, n1=None, n2=None, b_pad=None):
     """Pack stereo pairs into the batched kernels' operand layout:
     descriptors, per-row epipolar lines l_i = F h_i, per-column homogeneous
     points, validity masks and per-pair thresholds (1e9 disables the gate),
-    padded to shared (n1, n2) row counts (multiples of 256 and 512)."""
-    B = len(pair_feats)
+    padded to shared (n1, n2) row counts (multiples of 256 and 512) and to
+    b_pad pairs (default: the pairs given; padding pairs have no valid
+    row)."""
+    B = len(pair_feats) if b_pad is None else b_pad
     if n1 is None:
         n1 = max(max(np.asarray(f[0]).shape[0] for f in pair_feats), 1)
         n1 = -(-n1 // 256) * 256

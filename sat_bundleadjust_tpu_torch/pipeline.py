@@ -12,11 +12,13 @@ Detection, matching, triangulation, the LM solves and the RPC refit run on
 code, as there. The camera models are rpc, affine and perspective (the
 matrix models write P_adj/ and refit their .rpc_adj on the host); the
 tracks come from the tracks front end or from a predefined-matches bundle
-(in_dir/predefined_matches). One process on one device: the JAX package's
-mesh route (`distributed`, `mesh`) is not ported (ROADMAP.md, Queue 1 item
-12) and raises. `timing` collects the seconds of every step of the last
-run, `ft_timing` those of the tracks front end, `ba_rounds` the counters of
-each LM solve and `refit_stats` the refit's.
+(in_dir/predefined_matches). With `distributed` (or a `mesh`) the BA
+rounds solve over the ranks of the mesh (parallel/dist_solver.py), the
+tracks front end splits its images and pairs over the processes, and rank
+0 alone writes the outputs, behind barriers (parallel/multihost.py).
+`timing` collects the seconds of every step of the last run, `ft_timing`
+those of the tracks front end, `ba_rounds` the counters of each LM solve
+and `refit_stats` the refit's.
 """
 
 import copy
@@ -35,6 +37,8 @@ from sat_bundleadjust_tpu_torch.models import cameras as cam_utils
 from sat_bundleadjust_tpu_torch.models.ellipsoid import latlon_to_ecef_np
 from sat_bundleadjust_tpu_torch.models.rpc import write_rpc_file
 from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
+from sat_bundleadjust_tpu_torch.parallel import multihost
+from sat_bundleadjust_tpu_torch.parallel.mesh import make_mesh, world_size
 from sat_bundleadjust_tpu_torch.tracks import build as ft_build
 from sat_bundleadjust_tpu_torch.tracks import ranking as ft_ranking
 from sat_bundleadjust_tpu_torch.utils import geo as geo_utils
@@ -76,13 +80,17 @@ class BundleAdjustmentPipeline:
         self.outlier_thr_rounding = extra_ba_config.get("outlier_thr_rounding", False)
         self.max_init_reproj_error = extra_ba_config.get("max_init_reproj_error", None)
         self.save_figures = extra_ba_config.get("save_figures", True)
-        # True / False / "auto"; one device here, so "auto" means one device
+        # True / False / "auto": the BA rounds over the ranks of a mesh
+        # (see _distributed_solve)
         self.distributed = extra_ba_config.get("distributed", "auto")
         self.mesh = extra_ba_config.get("mesh", None)
         if self.distributed is True or self.mesh is not None:
-            raise NotImplementedError(
-                "distributed / mesh: the multi-device solve is not ported yet "
-                "(ROADMAP.md, Queue 1 item 12); the port runs on one device")
+            from sat_bundleadjust_tpu_torch.parallel import mesh as mesh_lib
+
+            if self.mesh is None:
+                self.mesh = mesh_lib.make_mesh(device=self.device)
+            # the feature stages and the solver follow the same ranks
+            mesh_lib.set_default_mesh(self.mesh)
         self.dem_path = extra_ba_config.get("dem_path", None)
 
         from sat_bundleadjust_tpu_torch.utils.dem import make_alt_getter
@@ -128,10 +136,13 @@ class BundleAdjustmentPipeline:
         self.ba_rounds = []
         self.refit_stats = None
 
-        init_rpc_dir = os.path.join(self.out_dir, "rpcs")
-        init_rpc_paths = ["{}/{}.rpc".format(init_rpc_dir, loader.get_id(im.geotiff_path))
-                          for im in self.images]
-        loader.save_rpcs(init_rpc_paths, [im.rpc for im in self.images])
+        # one writer of the shared outputs (every rank computes the same)
+        if multihost.is_main_process():
+            init_rpc_dir = os.path.join(self.out_dir, "rpcs")
+            init_rpc_paths = ["{}/{}.rpc".format(init_rpc_dir, loader.get_id(im.geotiff_path))
+                              for im in self.images]
+            loader.save_rpcs(init_rpc_paths, [im.rpc for im in self.images])
+        multihost.barrier("init_rpcs")
 
     # ------------------------------------------------------------------
     # setup
@@ -270,11 +281,38 @@ class BundleAdjustmentPipeline:
         self.ba_params = BAParams(self.C, self.pts3d, self.cameras, self.cam_model,
                                   self.pairs_to_triangulate, cam_centers, d)
 
+    def _distributed_solve(self):
+        """Resolve the `distributed` knob: True and False as given; "auto"
+        means the distributed solve exactly when the world has more than
+        one rank (one device per process: the JAX package's single-process
+        "auto" over several devices has no counterpart here)."""
+        if self.distributed is True or self.distributed is False:
+            return self.distributed
+        return world_size() > 1
+
     def _run_ba(self, ls_params, verbose=True):
-        """One BA round on the device; its solver counters go to
-        `ba_rounds`. The BASolver (closures and tables) is kept while the
-        BAParams instance is unchanged (rm_outliers returns the same
-        object when nothing was removed)."""
+        """One BA round on the device, or over the ranks of the mesh
+        (parallel/dist_solver.run_ba_optimization_distributed, the same
+        return contract); its solver counters go to `ba_rounds`. The solver
+        (closures and tables, or this rank's shard) is kept while the
+        BAParams instance is unchanged (rm_outliers returns the same object
+        when nothing was removed)."""
+        if self._distributed_solve():
+            from sat_bundleadjust_tpu_torch.parallel.dist_solver import (
+                make_distributed_solver,
+                run_ba_optimization_distributed,
+            )
+
+            if self.mesh is None:
+                self.mesh = make_mesh(device=self.device)
+            if getattr(self, "_dist_solver_p", None) is not self.ba_params:
+                self._dist_solver = make_distributed_solver(self.ba_params, ls_params,
+                                                            mesh=self.mesh)
+                self._dist_solver_p = self.ba_params
+            out = run_ba_optimization_distributed(self.ba_params, ls_params, verbose=verbose,
+                                                  mesh=self.mesh, solver=self._dist_solver)
+            self.ba_rounds.append(dict(self._dist_solver.last_info))
+            return out
         if getattr(self, "_ba_solver_p", None) is not self.ba_params:
             self._ba_solver = BASolver(self.ba_params, device=self.device)
             self._ba_solver_p = self.ba_params
@@ -561,7 +599,11 @@ class BundleAdjustmentPipeline:
         timed("triangulation_s", self.initialize_pts3d)
 
         if not self.tracks_config["FT_save"]:
-            shutil.rmtree(os.path.join(self.out_dir, "matches"), ignore_errors=True)
+            # several processes: every rank is done with the npy caches
+            # before one removes them
+            multihost.barrier("tracks_done")
+            if multihost.is_main_process():
+                shutil.rmtree(os.path.join(self.out_dir, "matches"), ignore_errors=True)
 
         if self.max_init_reproj_error is not None:
             self.remove_all_obs_with_reprojection_error_higher_than(thr=self.max_init_reproj_error)
@@ -594,18 +636,22 @@ class BundleAdjustmentPipeline:
         else:
             self.global_transform = None
 
-        t0 = clock()
-        self.save_corrected_points()
-        self.save_estimated_params()
-        self.save_corrected_cameras()
-        self.timing["writes_s"] = clock() - t0 - self.timing["refit_s"]
-
-        if self.save_figures:
+        # the outputs: one writer; the barrier makes them visible to every
+        # rank (the sequential mode's next date reads the adjusted RPCs)
+        if multihost.is_main_process():
             t0 = clock()
-            loader.save_geojson(os.path.join(self.out_dir, "AOI.json"), self.aoi)
-            self.save_feature_tracks()
-            self.save_debug_figures()
-            self.timing["figures_s"] = clock() - t0
+            self.save_corrected_points()
+            self.save_estimated_params()
+            self.save_corrected_cameras()
+            self.timing["writes_s"] = clock() - t0 - self.timing["refit_s"]
+
+            if self.save_figures:
+                t0 = clock()
+                loader.save_geojson(os.path.join(self.out_dir, "AOI.json"), self.aoi)
+                self.save_feature_tracks()
+                self.save_debug_figures()
+                self.timing["figures_s"] = clock() - t0
+        multihost.barrier("pipeline_outputs")
 
         pipeline_time = loader.get_time_in_hours_mins_secs(clock() - pipeline_start)
         flush_print("\nBundle adjustment pipeline completed in {}\n".format(pipeline_time))

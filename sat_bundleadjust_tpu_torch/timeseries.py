@@ -1,12 +1,14 @@
 """Scene / time-series driver: loads geotiffs and RPCs, groups the images
 into acquisition dates and runs the bundle adjustment.
 
-Counterpart of `sat_bundleadjust_tpu/timeseries.py` on one device, with
-the same config keys, the three `rpc_src` values (txt, json, geotiff) and
+Counterpart of `sat_bundleadjust_tpu/timeseries.py`, with the same config
+keys, the three `rpc_src` values (txt, json, geotiff) and
 the three BA modes: `ba_bruteforce` (every image at once), `ba_sequential`
 (date by date, each against its n_dates previously adjusted dates, which
 stay frozen) and `ba_global` (every image at once, pairs restricted to a
-date and its next n_dates dates).
+date and its next n_dates dates). With several processes
+(parallel/multihost.py, the `distributed` key) every process runs the same
+scene and rank 0 alone writes the shared files, behind barriers.
 """
 
 import glob
@@ -20,6 +22,7 @@ import numpy as np
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
 from sat_bundleadjust_tpu_torch.models.rpc import rpc_from_json_file, rpc_from_rpc_file
+from sat_bundleadjust_tpu_torch.parallel import multihost
 from sat_bundleadjust_tpu_torch.pipeline import BundleAdjustmentPipeline
 from sat_bundleadjust_tpu_torch.utils import io as loader
 from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
@@ -168,8 +171,10 @@ class Scene:
             all_datetimes.append(get_acquisition_date(tif_fname))
 
         init_rpcs_dir = os.path.join(self.dst_dir, "rpcs_init")
-        loader.save_rpcs(["{}/{}.rpc".format(init_rpcs_dir, loader.get_id(fn)) for fn in all_fnames],
-                         all_rpcs)
+        if multihost.is_main_process():
+            loader.save_rpcs(["{}/{}.rpc".format(init_rpcs_dir, loader.get_id(fn))
+                              for fn in all_fnames], all_rpcs)
+        multihost.barrier("rpcs_init")
         return group_files_by_date(all_datetimes, all_fnames)
 
     def get_timeline_attributes(self, timeline_indices, attributes):
@@ -276,12 +281,15 @@ class Scene:
         return elapsed, self.ba_pipeline.feature_tracks_running_time, n_tracks, ba_e, init_e
 
     def rm_tmp_files_after_ba(self):
-        shutil.rmtree("{}/{}/matches".format(self.dst_dir, self.ba_method), ignore_errors=True)
+        if multihost.is_main_process():
+            shutil.rmtree("{}/{}/matches".format(self.dst_dir, self.ba_method), ignore_errors=True)
+        multihost.barrier("rm_tmp_files")
 
     def reset_ba_params(self):
         ba_dir = "{}/{}".format(self.dst_dir, self.ba_method)
-        if os.path.exists(ba_dir):
+        if multihost.is_main_process() and os.path.exists(ba_dir):
             shutil.rmtree(ba_dir)
+        multihost.barrier("reset_ba_params")
         for t in self.timeline:
             t["adjusted"] = False
 
@@ -304,9 +312,10 @@ class Scene:
             self.fix_ref_cam = fix_ref_cam_initial and (idx == 0 or self.n_dates == 0)
             n_adj = self.n_adj
             running_time, time_FT, n_tracks, ba_e, _ = self.bundle_adjust()
-            pts_out = "{}/pts3d_adj/{}_pts3d_adj.ply".format(ba_dir, self.timeline[t_idx]["id"])
-            os.makedirs(os.path.dirname(pts_out), exist_ok=True)
-            shutil.copyfile(ba_dir + "/pts3d_adj.ply", pts_out)
+            if multihost.is_main_process():
+                pts_out = "{}/pts3d_adj/{}_pts3d_adj.ply".format(ba_dir, self.timeline[t_idx]["id"])
+                os.makedirs(os.path.dirname(pts_out), exist_ok=True)
+                shutil.copyfile(ba_dir + "/pts3d_adj.ply", pts_out)
 
             init_e, after_e = self.compute_reprojection_error_before_and_after_bundle_adjust()
             pipe = self.ba_pipeline

@@ -12,7 +12,9 @@ with its two backends:
 Every image's keypoints come out in the common layout, (N, 132) float rows
 (col, row, scale, orientation, 128-d descriptor), sorted by descending
 scale and NaN-padded to FT_kp_max. The npy cache of features/ is read and
-written as there.
+written as there. With several processes (parallel/multihost.py) each
+reads and detects only its own images and the processes exchange their
+keypoints through the features/ cache of the shared output directory.
 """
 
 import os
@@ -22,6 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.parallel import multihost
+from sat_bundleadjust_tpu_torch.parallel.mesh import world_size
 from sat_bundleadjust_tpu_torch.utils import io as loader
 from sat_bundleadjust_tpu_torch.utils.io import flush_print, get_id
 
@@ -88,15 +92,27 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
     backend = config["FT_sift_detection"]
     check_backend(backend)
 
+    # several processes: each reads and detects only its own images and
+    # publishes them to the shared features/ cache
+    multiproc = world_size() > 1
+    if multiproc and not (config["FT_save"] and "out_dir" in config):
+        raise ValueError("multi-process feature detection needs FT_save and out_dir "
+                         "(the npy exchange through a shared directory)")
+    owned = set(multihost.partition_by_process(len(geotiff_paths))) if multiproc else None
+
     n = len(geotiff_paths)
     resolved = [None] * n
     pending = []  # (i, path, offset, mask) still to detect
+    remote = []  # uncached images another process detects
     for i, path in enumerate(geotiff_paths):
         if not config["FT_reset"] and "in_dir" in config:
             npy_in = os.path.join(config["in_dir"], "features/{}.npy".format(get_id(path)))
             if os.path.exists(npy_in):
                 resolved[i] = np.load(npy_in)
                 continue
+        if owned is not None and i not in owned:
+            remote.append(i)
+            continue
         offset_i = None if offsets is None else offsets[i]
         mask = None if mask_paths is None else np.load(mask_paths[i])
         pending.append((i, path, offset_i, mask))
@@ -133,11 +149,28 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
     if timing is not None:
         timing["detector_s"] = time.time() - t0
 
+    if multiproc:
+        # publish this process's images (owned exclusively: no write races;
+        # cache hits are relocated by rank 0 only), then read the others'
+        detected = {i for i, *_ in pending}
+        for i in range(n):
+            if resolved[i] is None or (i not in detected and not multihost.is_main_process()):
+                continue
+            npy_out = os.path.join(config["out_dir"], "features/{}.npy".format(
+                get_id(geotiff_paths[i])))
+            if not os.path.exists(npy_out):
+                os.makedirs(os.path.dirname(npy_out), exist_ok=True)
+                np.save(npy_out, resolved[i])
+        multihost.barrier("feature_detection")
+        for i in remote:
+            resolved[i] = np.load(os.path.join(config["out_dir"], "features/{}.npy".format(
+                get_id(geotiff_paths[i]))))
+
     features = []
     for i, path in enumerate(geotiff_paths):
         features_i = resolved[i]
         flush_print("{} keypoints in image {}".format(int(np.sum(~np.isnan(features_i[:, 0]))), i))
-        if config["FT_save"] and "out_dir" in config:
+        if config["FT_save"] and "out_dir" in config and not multiproc:
             npy_out = os.path.join(config["out_dir"], "features/{}.npy".format(get_id(path)))
             os.makedirs(os.path.dirname(npy_out), exist_ok=True)
             np.save(npy_out, features_i)

@@ -1,10 +1,13 @@
 """Pairwise matching orchestration over stereo pairs.
 
-Counterpart of `sat_bundleadjust_tpu/tracks/matching.py` for one process:
-the restriction of each pair's keypoints to the bounding box of the UTM
+Counterpart of `sat_bundleadjust_tpu/tracks/matching.py`: the
+restriction of each pair's keypoints to the bounding box of the UTM
 intersection of the two footprints, the epipolar F init, the 2-NN stage for
 all pairs at once, RANSAC and the UTM geo-consistency elbow filter, and the
-npy match caching protocol.
+npy match caching protocol. With several processes (parallel/multihost.py)
+each matches only its own pairs, on its own device, and the processes
+exchange their results through the pairwise_matches/ cache of the shared
+output directory.
 
 The 2-NN stage follows the JAX package's dispatch (`ops/match.py`):
 * on the card (`cuda`) the frames are staged once as int8 and every pair's
@@ -32,6 +35,8 @@ from sat_bundleadjust_tpu_torch.models.cameras import generate_point_mesh
 from sat_bundleadjust_tpu_torch.models.rpc import rpc_localization_np, rpc_projection_np
 from sat_bundleadjust_tpu_torch.ops import match as match_ops
 from sat_bundleadjust_tpu_torch.ops.ransac import MIN_SAMPLES, ransac_fundamental_many
+from sat_bundleadjust_tpu_torch.parallel import multihost
+from sat_bundleadjust_tpu_torch.parallel.mesh import world_size
 from sat_bundleadjust_tpu_torch.tracks import lightglue
 from sat_bundleadjust_tpu_torch.utils import geo as geo_utils
 from sat_bundleadjust_tpu_torch.utils.io import get_id
@@ -286,6 +291,12 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
     method_cfg = tracks_config["FT_sift_matching"]
     _check_method(method_cfg)
     staged_intent = dev.type == "cuda" and method_cfg in _DEVICE_METHODS
+    # several processes: each matches its own pairs, on its own device
+    multiproc = world_size() > 1
+    if multiproc and not out_dir:
+        raise ValueError("multi-process matching needs out_dir (the npy exchange through a "
+                         "shared directory)")
+    owned = set(multihost.partition_by_process(len(pairs_to_match))) if multiproc else None
 
     frame_cache = _FrameCache()
     utm_cache = _FrameCache()
@@ -297,6 +308,7 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
     from_cache = [False] * len(pairs_to_match)
     to_match = []  # (idx, fi, fj, idx_i, idx_j, utm_i, utm_j)
     to_match_frames = []
+    remote = []  # uncached pairs another process matches
     for idx, (i, j) in enumerate(pairs_to_match):
         npy_id1 = "{}_{}.npy".format(fid(features[i]), fid(features[j]))
         npy_id2 = "{}_{}.npy".format(fid(features[j]), fid(features[i]))
@@ -311,6 +323,9 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
             resolved[idx] = np.load(npy_path2)[:, ::-1]
             npy_ids[idx] = npy_id2
             from_cache[idx] = npy_path2
+            continue
+        if owned is not None and idx not in owned:
+            remote.append(idx)
             continue
 
         poly_i = geo_utils.geojson_to_polygon(footprints[i]["geojson"])
@@ -385,8 +400,25 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
             resolved[idx] = matches_ij
         timing["finalize_s"] = timing.get("finalize_s", 0.0) + time.time() - t0
 
+    if multiproc:
+        # publish this process's pairs (empty results too: "matched, none
+        # found" differs from "not matched"), sync, read the others'
+        for (idx, *_rest) in to_match:
+            out_path = os.path.join(out_dir, "pairwise_matches", _guard_mem_token(npy_ids[idx]))
+            os.makedirs(os.path.dirname(out_path), exist_ok=True)
+            m = resolved[idx]
+            np.save(out_path, np.zeros((0, 2), np.int64) if m is None else np.asarray(m))
+        multihost.barrier("pairwise_matching")
+        for idx in remote:
+            out_path = os.path.join(out_dir, "pairwise_matches", npy_ids[idx])
+            if os.path.exists(out_path):  # the owner may have skipped the pair
+                m = np.load(out_path)
+                resolved[idx] = m if m.shape[0] > 0 else None
+
     # pass 3: assemble, print, write caches (a cached result is written again
-    # when the output cache is elsewhere than where it was read)
+    # when the output cache is elsewhere than where it was read; with several
+    # processes the own pairs were published above and rank 0 alone
+    # relocates cache hits)
     t0 = time.time()
     kp_rows, im_rows = [], []
     for idx, (i, j) in enumerate(pairs_to_match):
@@ -403,7 +435,12 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
             if tracks_config.get("FT_save") and out_dir:
                 out_path = os.path.join(out_dir, "pairwise_matches",
                                         _guard_mem_token(npy_ids[idx]))
-                if out_path != from_cache[idx]:
+                if multiproc:
+                    write = (from_cache[idx] and out_path != from_cache[idx]
+                             and multihost.is_main_process() and not os.path.exists(out_path))
+                else:
+                    write = out_path != from_cache[idx]
+                if write:
                     os.makedirs(os.path.dirname(out_path), exist_ok=True)
                     np.save(out_path, np.asarray(matches_ij))
     timing["assemble_s"] = timing.get("assemble_s", 0.0) + time.time() - t0

@@ -1,13 +1,18 @@
 """FeatureTracksPipeline: detection -> pair selection -> matching -> tracks.
 
-Counterpart of `sat_bundleadjust_tpu/tracks/pipeline.py` for one process,
-with the same stages, the same npy cache layout (features/, features_utm/,
-pairwise_matches/) and the same in-memory handoff when FT_save is False.
-Detection and the 2-NN matching run on `device` (default: the card); the F
-init, RANSAC, UTM coordinates and track building are host numpy, as there.
-With FT_kp_aoi and an AOI, each image's AOI mask is written to
-<output_dir>/masks/<id>.npy (cropped to its offset) and restricts its
-keypoints, whichever the detector.
+Counterpart of `sat_bundleadjust_tpu/tracks/pipeline.py`, with the same
+stages, the same npy cache layout (features/, features_utm/,
+pairwise_matches/) and the same in-memory handoff when FT_save is False in
+one process. Detection and the 2-NN matching run on `device` (default: the
+card); the F init, RANSAC, UTM coordinates and track building are host
+numpy, as there. With FT_kp_aoi and an AOI, each image's AOI mask is
+written to <output_dir>/masks/<id>.npy (cropped to its offset) and
+restricts its keypoints, whichever the detector.
+
+Several processes (parallel/multihost.py): each detects its own images and
+matches its own pairs (round-robin over the ranks) and the stages exchange
+their results through the npy caches of the shared output directory,
+behind barriers; rank 0 alone writes the portable artifacts.
 """
 
 import os
@@ -16,6 +21,8 @@ import timeit
 import numpy as np
 
 from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.parallel import multihost
+from sat_bundleadjust_tpu_torch.parallel.mesh import world_size
 from sat_bundleadjust_tpu_torch.tracks import build as ft_build
 from sat_bundleadjust_tpu_torch.tracks import detection as ft_detection
 from sat_bundleadjust_tpu_torch.tracks import matching as ft_matching
@@ -49,27 +56,34 @@ class FeatureTracksPipeline:
             masks_dir = os.path.join(self.output_dir, "masks")
             os.makedirs(masks_dir, exist_ok=True)
             self.mask_paths = []
-            for im in self.images:
+            # the masks serve detection only, whose images are dealt over
+            # the processes by the same rule: each writes (and reads) its own
+            owned = set(multihost.partition_by_process(len(self.images)))
+            for k, im in enumerate(self.images):
                 mask_path = os.path.join(masks_dir, loader.get_id(im.geotiff_path) + ".npy")
-                y0, x0 = int(im.offset["row0"]), int(im.offset["col0"])
-                h, w = int(im.offset["height"]), int(im.offset["width"])
-                mask = loader.get_binary_mask_from_aoi_lonlat_within_image(
-                    h, w, im.rpc, self.aoi, alt=im.alt or 0.0)
-                np.save(mask_path, mask[y0:y0 + h, x0:x0 + w])
+                if k in owned:
+                    y0, x0 = int(im.offset["row0"]), int(im.offset["col0"])
+                    h, w = int(im.offset["height"]), int(im.offset["width"])
+                    mask = loader.get_binary_mask_from_aoi_lonlat_within_image(
+                        h, w, im.rpc, self.aoi, alt=im.alt or 0.0)
+                    np.save(mask_path, mask[y0:y0 + h, x0:x0 + w])
                 self.mask_paths.append(mask_path)
         self.timing = {}
 
     def run_feature_detection(self):
-        """Detect keypoints in every image. With FT_save False the features
-        stay in memory and feed the matcher directly; else they go through
-        the features/ and features_utm/ npy caches."""
+        """Detect keypoints in every image. In one process with FT_save
+        False the features stay in memory and feed the matcher directly;
+        else they go through the features/ and features_utm/ npy caches
+        (several processes exchange them there)."""
         image_paths = [im.geotiff_path for im in self.images]
         offsets = [im.offset for im in self.images]
+        handoff = world_size() == 1 and not self.config["FT_save"]
+        cfg = dict(self.config, FT_save=not handoff)
         feats_mem = ft_detection.detect_features_image_sequence(
-            image_paths, self.mask_paths, offsets, self.config, device=self.device,
+            image_paths, self.mask_paths, offsets, cfg, device=self.device,
             timing=self.timing)
 
-        if not self.config["FT_save"]:
+        if handoff:
             self.features = list(feats_mem)
             self.features_utm = [
                 ft_matching.keypoints_to_utm_coords(f, im.rpc, im.offset, im.alt or 0.0)
@@ -81,13 +95,18 @@ class FeatureTracksPipeline:
                          for p in image_paths]
         self.features_utm = ["{}/features_utm/{}.npy".format(self.output_dir, loader.get_id(p))
                              for p in image_paths]
-        for npy, npy_utm, im in zip(self.features, self.features_utm, self.images):
-            if not self.config["FT_reset"] and os.path.exists(npy_utm):
+        # several processes: the UTM coordinates follow detection's images,
+        # synced before any process reads another's
+        owned = set(multihost.partition_by_process(len(self.images)))
+        for k, (npy, npy_utm, im) in enumerate(zip(self.features, self.features_utm,
+                                                   self.images)):
+            if k not in owned or (not self.config["FT_reset"] and os.path.exists(npy_utm)):
                 continue
             utm = ft_matching.keypoints_to_utm_coords(np.load(npy, mmap_mode="r"), im.rpc,
                                                       im.offset, im.alt or 0.0)
             os.makedirs(os.path.dirname(npy_utm), exist_ok=True)
             np.save(npy_utm, utm)
+        multihost.barrier("features_utm")
 
     def get_stereo_pairs_to_match(self):
         """Pairs to match and pairs to triangulate, from footprint overlap
@@ -182,7 +201,7 @@ class FeatureTracksPipeline:
             self.pairwise_matches = np.zeros((0, 4), dtype=np.int64)
             flush_print("\n[tracks] matching: nothing to do (no pairs)")
         feature_tracks = timed("track construction", "tracks_s", self.get_feature_tracks)
-        if self.config.get("FT_save"):
+        if self.config.get("FT_save") and multihost.is_main_process():
             timed("portable artifacts", "artifacts_s", self._save_portable_artifacts)
 
         total = clock() - t_start

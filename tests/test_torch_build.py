@@ -79,3 +79,25 @@ def test_build_failure_names_the_source_and_keeps_no_library(fake):
     assert not os.path.exists(_build.log_path("broken"))
     assert _build.build(["alpha", "beta"])["alpha"].startswith("ptxas info")
     assert compiled() == []
+
+
+def test_builds_at_once_compile_each_source_once(fake):
+    """Two builds started together (the ranks of a distributed run) take
+    turns on the build directory's lock: the second finds the first's
+    libraries fresh and returns their logs."""
+    import threading
+
+    csrc, compiled = fake
+    results = [None, None]
+
+    def run(k):
+        results[k] = _build.build()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+        assert not th.is_alive()
+    assert compiled() == ["alpha", "beta"]
+    assert results[0] == results[1] and sorted(results[0]) == ["alpha", "beta"]

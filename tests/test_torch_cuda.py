@@ -4,6 +4,9 @@ where torch.cuda.is_available() is false. On a machine with an NVIDIA GPU:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
+test_distributed_solve_on_the_card starts its ranks as child processes
+(this file run as a program is a rank's worker, `_dist_rank`).
+
 `schur_kernel_order` (a numpy model of the Schur kernels' order of work)
 and `schur_operands` (seeded operands with ragged tracks and cameras) live
 here so that both these tests and the CPU tests of
@@ -542,3 +545,47 @@ def test_device_trace_on_the_card(cuda, tmp_path, monkeypatch):
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
     assert len(kernels) >= 6, len(kernels)
+
+
+def _dist_rank(rank, world, port, backend, out):
+    """A rank of test_distributed_solve_on_the_card: the 100-camera demo
+    problem through parallel/dist_solver on the card."""
+    from sat_bundleadjust_tpu_torch.parallel import multihost
+    from sat_bundleadjust_tpu_torch.parallel.dist_solver import run_distributed_ba
+    from sat_bundleadjust_tpu_torch.parallel.mesh import make_mesh
+
+    multihost.initialize("127.0.0.1:" + port, int(world), int(rank), backend=backend)
+    p = demo.scene_to_baparams(demo.make_scene_arrays(n_cam=100, n_pts=20000, seed=0,
+                                                      device="cuda"))
+    smv.schur_wz.launches = 0
+    _, (cam, _), info = run_distributed_ba(p, {"max_iter": 30}, mesh=make_mesh())
+    np.savez("{}{}.npz".format(out, rank), cam=cam.cpu().numpy(), err=info["err_fin"],
+             counts=np.array([info["matvecs"], smv.schur_wz.launches, info["iterations"]]))
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_distributed_solve_on_the_card(cuda, tmp_path, backend, world):
+    """One NCCL rank, and two gloo ranks sharing the card (NCCL takes one
+    rank per device): the ranks' cameras bit-identical, schur_wz launched
+    once per matvec on every rank, the final mean reprojection error within
+    1e-3 px (chip_smoke.py's slice H bar) of the one-device solve's."""
+    from test_torch_ranks import run_ranks
+
+    run_ranks(__file__, [backend, str(tmp_path / "rank")], world, timeout=300)
+    res = [dict(np.load(str(tmp_path / "rank{}.npz".format(r)))) for r in range(world)]
+    for r in res:
+        np.testing.assert_array_equal(r["cam"], res[0]["cam"])
+        matvecs, launches, _ = r["counts"]
+        assert launches == matvecs > 0
+    p = demo.scene_to_baparams(demo.make_scene_arrays(n_cam=100, n_pts=20000, seed=0,
+                                                      device=cuda))
+    *_, err, _ = tsolver.run_ba_optimization(p, {"max_iter": 30}, device=cuda)
+    assert abs(float(res[0]["err"].mean()) - float(err.mean())) <= 1e-3
+
+
+if __name__ == "__main__":
+    import sys
+
+    _dist_rank(*sys.argv[1:])

@@ -44,6 +44,13 @@ def test_no_jax_imports(path):
     assert not bad, "{} imports {}".format(os.path.relpath(path, REPO), bad)
 
 
+def test_scan_covers_the_parallel_package():
+    """The multi-device modules are among the scanned and imported ones."""
+    names = {os.path.relpath(p, PKG_DIR) for p in _port_sources()}
+    for m in ("mesh", "multihost", "dist_solver", "feature_shard"):
+        assert os.path.join("parallel", m + ".py") in names, m
+
+
 def test_import_leaves_jax_unloaded():
     """Importing every module of the port in a fresh interpreter loads no
     jax module."""

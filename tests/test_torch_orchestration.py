@@ -267,7 +267,7 @@ UNPORTED_IDS = ["extra0-FT_sift_detection.*Queue 1 item 10", "extra1-lightglue.*
 @pytest.mark.parametrize("extra, error, match", [
     ({"FT_sift_detection": "opencv"}, AssertionError, "another route ran"),
     ({"FT_sift_matching": "lightglue"}, ImportError, "LightGlue package"),
-    ({"distributed": True}, NotImplementedError, "distributed.*Queue 1 item 12"),
+    ({"distributed": True}, AssertionError, "another route ran"),
     ({"dem_path": "/nonexistent/dem.tif"}, FileNotFoundError, "dem.tif"),
     ({"FT_sift_matching": "local_window"}, NotImplementedError, "imscript siftu binary"),
     ({"FT_kp_aoi": True, "aoi_geojson": "AOI"}, AssertionError, "another route ran"),
@@ -276,12 +276,12 @@ UNPORTED_IDS = ["extra0-FT_sift_detection.*Queue 1 item 10", "extra1-lightglue.*
 ], ids=UNPORTED_IDS)
 def test_unported_options_raise(tmp_path, monkeypatch, extra, error, match):
     """The options that cannot run raise before any track or solve runs
-    (also in the sequential mode): the multi-device solve, not ported
-    (NotImplementedError naming its ROADMAP item); local_window, which the
-    JAX package does not run either (its NotImplementedError); lightglue
-    without its package (the JAX package's ImportError); a DEM that is not
-    there. The options ported since (opencv, FT_kp_aoi with an AOI) set up
-    and reach the tracks front end, stubbed here to raise."""
+    (also in the sequential mode): local_window, which the JAX package does
+    not run either (its NotImplementedError); lightglue without its package
+    (the JAX package's ImportError); a DEM that is not there. The options
+    ported since (opencv, FT_kp_aoi with an AOI, the multi-device solve)
+    set up and reach the tracks front end, stubbed here to raise."""
+    from sat_bundleadjust_tpu_torch.parallel import mesh as tmesh
     from sat_bundleadjust_tpu_torch.tracks import pipeline as tpipe
 
     def refuse(*args, **kwargs):
@@ -289,6 +289,8 @@ def test_unported_options_raise(tmp_path, monkeypatch, extra, error, match):
 
     monkeypatch.setattr(tpipe.FeatureTracksPipeline, "build_feature_tracks", refuse)
     monkeypatch.setitem(sys.modules, "lightglue", None)
+    # "distributed" pins a process-wide default mesh: none after the test
+    monkeypatch.setattr(tmesh, "_MESH_OVERRIDE", None)
     if extra.get("aoi_geojson") == "AOI":
         from sat_bundleadjust_tpu_torch.utils.geo import geojson_polygon
         from sat_bundleadjust_tpu_torch.utils.io import save_geojson
@@ -298,6 +300,9 @@ def test_unported_options_raise(tmp_path, monkeypatch, extra, error, match):
             [[-72.72, 11.01], [-72.70, 11.01], [-72.70, 11.03], [-72.72, 11.03]])))
     with pytest.raises(error, match=match):
         _run(tmp_path, **extra)
+    if extra.get("distributed"):
+        # the knob set up a mesh of this one process for every stage
+        assert tmesh.get_default_mesh().size == 1
     if extra.get("FT_kp_aoi"):
         # the AOI masks are written when the tracks front end is set up
         assert glob.glob(str(tmp_path / "**" / "masks" / "*.npy"), recursive=True)
