@@ -43,8 +43,24 @@ no result line, where CUDA is not available. It
      events; achieved TOP/s and share of the bound);
  10. re-runs the detection of two of slice C's frames under torch.profiler
      (device busy time, idle share, top kernels);
- 11. detects one 512x512 frame on the card and on the CPU: the keypoint
-     counts must agree within 1%;
+ 11. the card's SIFT against the CPU's: a 512x512 render and slice C's
+     frame 0 detected on both and matched keypoint by keypoint (unmatched
+     counts, position, scale and orientation differences, equal
+     descriptors; counts within 1%), the 512x512 frame's stages traced on
+     both devices from the same input (the first tensor that differs), the
+     elementary functions and reductions of the stages on the same seeded
+     inputs on both devices (the libraries' and the port's own), and slice
+     C's tracks and BA rounds rerun with the CPU's keypoints for frame 0;
+ 11a. slice I: the single-image and single-pair entry points on slice C's
+     frames: detect_tpu of frame 0 with a mask over the central half, which
+     must give slice C's batched detection under that mask bit for bit;
+     init_F_pair_to_match of every pair against init_F_pairs_batched (1e-9,
+     normalized); match_pair on the card for three pairs, which launches
+     the single-pair 2-NN kernel once each (bit-identical to its plain
+     version on the pair's operands) and is compared with the staged
+     path's matches; 1000 rotations through every conversion, and
+     RPCModel's host projection and localization against the card's
+     functions for slice C's RPCs;
  12. slice D: the command line interface (`cli.main([config, "--verbose"])`,
      in process) on slice C's ten frames written to disk as .tif with
      their biased RPCs as .rpc files, with the default config plus
@@ -103,7 +119,7 @@ line {"ok": true, "device": {...}}. Kernel launch counters are set to 0
 just before each slice and read just after it: a kernel of the path that
 a slice did not launch fails the run, and so does a launch of the f32 2-NN
 kernels in slices C and D, whose SIFT descriptors must take the int8
-kernel.
+kernel; slice I must launch the single-pair kernel once per match_pair.
 """
 
 import argparse
@@ -174,6 +190,8 @@ SLICE_H2_REPROJ_AFTER_MAX = 0.1
 SLICE_H2_GRID_PX = 1e-2
 SLICE_H_TIMEOUT_S = 300
 SLICE_G_ALT_TOL_M = 1e-6
+# slice I: the single-pair matcher on the first pairs of slice C
+SLICE_I_PAIRS = 3
 
 
 def log(*args):
@@ -220,13 +238,15 @@ def schur_operands(p, solver, lam=1e-4):
     return W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam
 
 
-def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2, spare=8):
+def profile_schur(label, op, x, reps, warm=3, tries=3, pause_s=0.2, spare=32):
     """Device time per call of a bound Schur operator from the profiler's
     kernel spans (by kernel name): `warm` calls and a pause, then `spare`
     calls and `reps` timed ones. The profiler's device tracing can miss the
     first calls of a window (2 spans of 406 in most runs on the H100, 279
-    of 406 in one) and the first calls after the pause (4 spans, every
-    window of one shape), so only the spans after the pause (the last gap
+    of 406 in one) and the first calls after the pause (4 spans in most
+    windows, the spans of 11 calls in every window of one shape in one run;
+    `spare` untimed calls follow the pause), so only the spans after the
+    pause (the last gap
     of at least half of it between two spans on the device's clock) are
     read, the last reps * kernels of them are the timed calls', and each
     kernel of KERNEL_NAMES must show exactly `reps` spans among those: a
@@ -594,10 +614,7 @@ def slice_c(dev, counters):
     import numpy as np
     import torch
 
-    from sat_bundleadjust_tpu_torch.ba import outliers
-    from sat_bundleadjust_tpu_torch.ba.params import BAParams
     from sat_bundleadjust_tpu_torch.ba.solver import BASolver
-    from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
     from sat_bundleadjust_tpu_torch.tracks.pipeline import FeatureTracksPipeline
 
     t0 = time.time()
@@ -621,13 +638,7 @@ def slice_c(dev, counters):
         None if C is None else C.shape)
     timing = dict(ft.timing)
 
-    pts3d = init_pts3d(C, [im.rpc for im in images], "rpc", bundle["pairs_to_triangulate"],
-                       device=dev)
-    p = BAParams(C, pts3d, [im.rpc for im in images], "rpc", bundle["pairs_to_triangulate"],
-                 [im.center for im in images], {"verbose": False})
-    _, _, e_soft, soft = solve_round(BASolver(p, device=dev), SOFT_L1, "slice C soft-L1")
-    p2 = outliers.rm_outliers(e_soft, p, device=dev)
-    _, _, e_l2, l2 = solve_round(BASolver(p2, device=dev), None, "slice C L2")
+    p, p2, soft, l2 = tracks_ba(bundle, images, dev, "slice C")
     torch.cuda.synchronize()
     path_s = time.time() - t_path
     launches = {k.__name__: k.launches for k in counters}
@@ -874,26 +885,482 @@ def ptxas_summary(log_text):
     return out
 
 
-def sift_device_check(dev):
-    """One 512x512 rendered frame detected on the card and on the CPU."""
+def sift_stage_trace(image, dev, n_kp=1024):
+    """The port's SIFT stages on one frame, in the order detection runs
+    them: octave 0's pyramid, extrema and refinement, then the scale,
+    gradients, orientations and descriptor of its first n_kp valid
+    keypoints. Returns [(stage, op, tensor on the host)]."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    out = []
+
+    def rec(stage, op, t):
+        out.append((stage, op, t.detach().cpu()))
+
+    with torch.no_grad():
+        im = sift._normalized_stack([image], torch.device(dev))
+        up = sift._upsample2(im)
+        rec("2x upsampling", "_upsample_axis (_fma)", up)
+        sig_inc = torch.as_tensor(sift._sig_inc(sift.N_SPO), device=dev)
+        taps = [sift._dynamic_taps(sig_inc[s], sift._MAX_BLUR_RADIUS)
+                for s in range(sift.N_SPO + 2)]
+        rec("blur taps", "_dynamic_taps (_exp_f32, sum, division)",
+            torch.stack([torch.stack(t) for t in taps]))
+        sigma_extra = float(np.sqrt(sift.SIGMA_MIN ** 2 - sift.SIGMA_IN ** 2) / sift.DELTA_MIN)
+        ss = [sift._blur(up, sigma_extra)]
+        rec("blur", "_blur (_accumulate, fixed taps)", ss[0])
+        for s in range(sift.N_SPO + 2):
+            ss.append(sift._blur_dynamic(ss[-1], taps[s]))
+        ss = torch.stack(ss, dim=1)[0]
+        rec("blur", "_blur_dynamic (_accumulate, traced taps)", ss)
+        dog = ss[1:] - ss[:-1]
+        rec("DoG", "subtraction", dog)
+        rec("extrema", "max_pool3d", F.max_pool3d(dog[None, None], 3, stride=1,
+                                                  padding=(0, 1, 1))[0, 0])
+        _, H, W = dog.shape
+        slots = int(min(sift.MAX_KP_PER_OCTAVE, max(192, (H * W) // 128)))
+        kp = sift._extrema_and_refine(dog, torch.tensor(0.0133, device=dev), slots)
+        rec("sub-pixel refinement", "_extrema_and_refine (top-k sort, _inv3x3)",
+            torch.stack([kp["x"], kp["y"], kp["s"], kp["value"], kp["valid"].float()]))
+        sel = torch.nonzero(kp["valid"])[:n_kp, 0]
+        x, y, s_kp = kp["x"][sel], kp["y"][sel], kp["s"][sel]
+        sigma = sift._sigma_oct(s_kp, sift.N_SPO)
+        rec("keypoint scale", "_sigma_oct (_exp2_f32 of _div(s, 3))", sigma)
+        level = torch.clamp(torch.round(s_kp).to(torch.int64), 0, sift.N_SPO + 2)
+        mag, ang, dx, dy = sift._gradients(ss, x, y, level)
+        rec("gradients", "magnitude (_hypot_f32)", mag)
+        rec("gradients", "angle (_atan2_f32)", ang)
+        th1, th2, v2 = sift._orientation(mag, ang, dx, dy, sigma)
+        rec("orientation histograms", "_orientation (_exp_via_f64 weights, _fixed_point sums "
+            "by scatter_add_, _div smoothing, peaks)",
+            torch.stack([th1, th2, v2.float()]))
+        rec("descriptor", "_descriptor (_sincos_f32 rotation, _exp_via_f64 weights, "
+            "_fixed_point sums by scatter_add_, _tree_sum norms, quantization)",
+            sift._descriptor(mag, ang, dx, dy, sigma, th1))
+    return out
+
+
+def sift_first_difference(card, cpu):
+    """The stages of two traces side by side: [(stage, op, differing
+    elements, elements, max |difference|)] and the first that differs."""
+    rows, first = [], None
+    for (stage, op, a), (_, _, b) in zip(card, cpu):
+        if a.shape != b.shape:
+            row = (stage, op, -1, b.numel(), float("inf"))
+        else:
+            diff = a.double() - b.double()
+            row = (stage, op, int((a != b).sum()), b.numel(), float(diff.abs().max()))
+        rows.append(row)
+        if first is None and row[2] != 0:
+            first = row
+    return first, rows
+
+
+def _ulps(a, b):
+    """|a - b| in units of float32 spacing at b (numpy)."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float32)
+    return np.abs(a - b) / np.spacing(np.maximum(np.abs(b), np.float32(1e-30)))
+
+
+def sift_suspects(dev, n=1 << 20):
+    """The elementary functions and reductions of the SIFT stages, each on
+    the same seeded inputs on the card and on the CPU: [(op, differing
+    results, results, max ulps)]."""
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    rng = np.random.RandomState(11)
+    f32 = np.float32
+    g = (rng.randn(n) * 0.02).astype(f32)
+    h = (rng.randn(n) * 0.02).astype(f32)
+    theta = rng.uniform(-np.pi, np.pi, n).astype(f32)
+    neg = rng.uniform(-30.0, 0.0, n).astype(f32)
+    expo = rng.uniform(0.0, 8.0 / 3.0, n).astype(f32)
+    ints = np.floor(rng.uniform(-126, 1, n)).astype(f32)
+    a, b, c = (rng.rand(3, n).astype(f32) - f32(0.5))
+    K, S = 512, 1681
+    wm = (rng.rand(K, S) * 0.01).astype(f32)
+    bins = rng.randint(0, 36, (K, S)).astype(f32)
+    lhs = (rng.rand(K, 16, S) * 0.01).astype(f32)
+    wo = rng.rand(K, S, 8).astype(f32)
+    d = (rng.rand(K, 128) * 0.3).astype(f32)
+    # K keypoints' gradient patches as _gradients gives them: magnitudes,
+    # angles, the grid's offsets and the keypoints' scales
+    P = 2 * sift._PATCH_R + 1
+    off = rng.uniform(-0.5, 0.5, (K, 2)).astype(f32)
+    grid = np.arange(P, dtype=f32) - sift._PATCH_R
+    patches = (np.abs(rng.randn(K, P, P) * 0.02).astype(f32),
+               rng.uniform(-np.pi, np.pi, (K, P, P)).astype(f32),
+               (grid[None] - off[:, :1]).astype(f32), (grid[None] - off[:, 1:]).astype(f32),
+               rng.uniform(1.6, 3.2, K).astype(f32))
+    cases = [
+        ("_fma (float64 product and TwoSum, round to odd)", sift._fma, (a, b, c)),
+        ("_exp_f32", sift._exp_f32, (neg,)),
+        ("torch.exp2 of integers", torch.exp2, (ints,)),
+        ("x / 3.0 (a Python float divisor)", lambda x: x / 3.0, (g,)),
+        ("torch.hypot", torch.hypot, (g, h)),
+        ("torch.atan2", torch.atan2, (g, h)),
+        ("torch.exp", torch.exp, (neg,)),
+        ("torch.sin", torch.sin, (theta,)),
+        ("torch.cos", torch.cos, (theta,)),
+        ("torch.pow(2, x)", lambda x: torch.pow(2.0, x), (expo,)),
+        ("masked sum over 1681 samples", lambda w, q: torch.sum(w * (q == 5), dim=1),
+         (wm, bins)),
+        ("torch.bmm (K, 16, 1681) x (K, 1681, 8)", torch.bmm, (lhs, wo)),
+        ("torch.linalg.vector_norm over 128 bins",
+         lambda x: torch.linalg.vector_norm(x, dim=1), (d,)),
+        # the port's own versions of the above, which the stages run
+        ("sift._div(x, 3.0)", lambda x: sift._div(x, 3.0), (g,)),
+        ("sift._hypot_f32", sift._hypot_f32, (g, h)),
+        ("sift._atan2_f32", sift._atan2_f32, (g, h)),
+        ("sift._exp_via_f64", sift._exp_via_f64, (neg,)),
+        ("sift._sincos_f32 (sin)", lambda x: sift._sincos_f32(x)[0], (theta,)),
+        ("sift._sincos_f32 (cos)", lambda x: sift._sincos_f32(x)[1], (theta,)),
+        ("sift._exp2_f32", sift._exp2_f32, (expo,)),
+        ("sift._tree_sum over 128 bins", lambda x: sift._tree_sum(x.t().contiguous()), (d,)),
+        ("sift._orientation (seeded patches)",
+         lambda *a: torch.stack(sift._orientation(*a)[:2]), patches),
+        ("sift._descriptor (seeded patches)", sift._descriptor, patches + (theta[:K],)),
+    ]
+    out = []
+    with torch.no_grad():
+        for name, fn, args in cases:
+            on_cpu = fn(*[torch.as_tensor(x) for x in args]).numpy()
+            on_card = fn(*[torch.as_tensor(x, device=dev) for x in args]).cpu().numpy()
+            out.append((name, int((on_card != on_cpu).sum()), on_cpu.size,
+                        float(_ulps(on_card, on_cpu).max())))
+    return out
+
+
+def sift_compare(f_card, f_cpu, pos_tol=0.01):
+    """Card keypoints against CPU keypoints (N, 132): each card keypoint
+    paired with its nearest CPU keypoint in (col, row, scale), the closest
+    orientation among equally near ones. Unmatched: no counterpart within
+    pos_tol (tests/test_torch_sift.py's POS_TOL) either way. The CPU bars of
+    tests/test_torch_sift.py on the CPU's keypoints: the share with a card
+    keypoint within pos_tol, and of those the share whose nearest
+    descriptor is equal."""
+    import numpy as np
+    from scipy.spatial import cKDTree
+
+    def nearest(f_from, f_to):
+        d, k = cKDTree(f_to[:, :3]).query(f_from[:, :3], k=min(4, len(f_to)))
+        d, k = d.reshape(len(f_from), -1), k.reshape(len(f_from), -1)
+        dth = np.abs(f_to[k, 3] - f_from[:, None, 3])
+        dth = np.minimum(dth, 2 * np.pi - dth)
+        dth = np.where(d <= d[:, :1] + 1e-9, dth, np.inf)
+        pick = np.argmin(dth, axis=1)
+        rows = np.arange(len(f_from))
+        return d[rows, pick], k[rows, pick]
+
+    d_card, k_card = nearest(f_card, f_cpu)
+    d_cpu, _ = nearest(f_cpu, f_card)
+    m = d_card <= pos_tol
+    a, b = f_card[m], f_cpu[k_card[m]]
+    dpos = np.hypot(a[:, 0] - b[:, 0], a[:, 1] - b[:, 1])
+    dth = np.abs(a[:, 3] - b[:, 3])
+    dth = np.minimum(dth, 2 * np.pi - dth)
+    ddesc = np.abs(a[:, 4:] - b[:, 4:]).max(axis=1)
+    near = cKDTree(f_card[:, :2]).query_ball_point(f_cpu[:, :2], pos_tol)
+    found = np.array([len(c) > 0 for c in near])
+    best = np.array([np.abs(f_card[c, 4:] - f_cpu[i, 4:]).max(1).min()
+                     for i, c in enumerate(near) if c])
+
+    def q(x, p):
+        return float(np.percentile(x, p)) if len(x) else 0.0
+
+    return {
+        "card": int(len(f_card)), "cpu": int(len(f_cpu)),
+        "identical": bool(f_card.shape == f_cpu.shape and np.array_equal(f_card, f_cpu)),
+        "unmatched_card": int((~m).sum()), "unmatched_cpu": int((d_cpu > pos_tol).sum()),
+        "dpos_max": q(dpos, 100), "dpos_p99": q(dpos, 99),
+        "dscale_max": q(np.abs(a[:, 2] - b[:, 2]), 100),
+        "dscale_p99": q(np.abs(a[:, 2] - b[:, 2]), 99),
+        "dtheta_max": q(dth, 100), "dtheta_p99": q(dth, 99),
+        "desc_equal": float((ddesc == 0).mean()) if len(ddesc) else 0.0,
+        "desc_max_bin_diff": float(ddesc.max()) if len(ddesc) else 0.0,
+        "positions_within_tol": float(found.mean()),
+        "desc_equal_within_tol": float((best == 0).mean()) if len(best) else 0.0,
+    }
+
+
+def sift_compare_line(label, r):
+    return ("SIFT {}: card {} keypoints, CPU {}; identical arrays: {}; unmatched within {} px "
+            "(card -> CPU / CPU -> card) {} / {}; matched |d position| max {:.3g} p99 {:.3g} px, "
+            "|d scale| max {:.3g} p99 {:.3g}, |d orientation| max {:.3g} p99 {:.3g} rad; "
+            "descriptors equal {:.4%}, largest bin difference {:g}; CPU bars: positions within "
+            "0.01 px {:.4%}, descriptors equal {:.4%}".format(
+                label, r["card"], r["cpu"], r["identical"], 0.01, r["unmatched_card"],
+                r["unmatched_cpu"], r["dpos_max"], r["dpos_p99"], r["dscale_max"],
+                r["dscale_p99"], r["dtheta_max"], r["dtheta_p99"], r["desc_equal"],
+                r["desc_max_bin_diff"], r["positions_within_tol"],
+                r["desc_equal_within_tol"]))
+
+
+def sift_device_check(dev, images, ft, c):
+    """The card's SIFT against the CPU's: a 512x512 render and slice C's
+    frame 0 (2000x2000) detected on both, matched keypoint by keypoint; the
+    stages of each frame traced on both devices from the same input (the
+    first tensor that differs); the elementary functions and reductions of
+    the stages on the same inputs; and slice C's tracks and BA rerun with
+    the CPU's keypoints for frame 0."""
     import numpy as np
 
     from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.tracks.detection import _top_k_by_scale
     from sat_bundleadjust_tpu_torch.utils import demo
 
+    rec = {}
     ims, _ = demo.render_synthetic_images(n_cam=1, h=512, w=512, seed=0, alt=0.0, device=dev)
+    frame0 = np.asarray(images[0].geotiff_path, np.float32)
+    kp_max = SLICE_C_TRACKS_CONFIG["FT_kp_max"]
+    card0 = ft.features[0][~np.isnan(ft.features[0][:, 0])]
+    for label, image, f_card in (("512x512", ims[0], None), ("2000x2000 (slice C frame 0)",
+                                                              frame0, card0)):
+        t0 = time.time()
+        if f_card is None:
+            f_card = sift.detect_sift(image, device=dev)
+        t1 = time.time()
+        f_cpu = _top_k_by_scale(sift.detect_sift(image, max_kp=kp_max, device="cpu"), None)
+        t2 = time.time()
+        r = sift_compare(_top_k_by_scale(f_card, None), f_cpu)
+        r.update(card_s=t1 - t0, cpu_s=t2 - t1)
+        log(sift_compare_line(label, r) + "; card {:.2f} s, CPU {:.2f} s".format(
+            r["card_s"], r["cpu_s"]))
+        r["cpu_features"] = f_cpu
+        rec[label] = r
+    # the stages of the 512x512 frame, each device from the same input
+    first, rows = sift_first_difference(sift_stage_trace(ims[0], dev),
+                                        sift_stage_trace(ims[0], "cpu"))
+    for row in rows:
+        log("  512x512 stage {} [{}]: {} of {} elements differ, max |d| {:.3g}".format(*row))
+    log("  512x512: first stage that differs: {}".format(
+        "none (identical)" if first is None else "{} [{}]".format(*first[:2])))
+    rec["stages"] = rows
+    rec["first_difference"] = None if first is None else first[:2]
+    suspects = sift_suspects(dev)
+    for name, n_diff, n, ulps in suspects:
+        log("  op {}: {} of {} results differ between card and CPU (max {:.3g} ulp)".format(
+            name, n_diff, n, ulps))
+    rec["suspects"] = suspects
+
+    # slice C's tracks and BA with the CPU's keypoints for frame 0
+    f_cpu0 = rec["2000x2000 (slice C frame 0)"].pop("cpu_features")
+    rec["512x512"].pop("cpu_features")
+    tracks_cpu, l2_cpu = slice_c_tracks_with(ft, images, dev, _top_k_by_scale(f_cpu0, kp_max))
+    rec["tracks"] = {"card": c["tracks"], "card_l2_px": c["l2"]["reproj_after_mean"],
+                     "cpu_frame0": tracks_cpu, "cpu_frame0_l2_px": l2_cpu}
+    log("slice C's tracks with frame 0's keypoints from the card / from the CPU: {} / {} "
+        "tracks, L2 {:.6f} / {:.6f} px".format(c["tracks"], tracks_cpu,
+                                               c["l2"]["reproj_after_mean"], l2_cpu))
+    # the bar of tests/test_torch_cuda.py::test_sift_on_the_card_gives_the_cpu_arrays
+    for label in ("512x512", "2000x2000 (slice C frame 0)"):
+        r = rec[label]
+        assert r["cpu"] > 100 and r["identical"], {k: v for k, v in r.items() if k != "stages"}
+    assert rec["first_difference"] is None, rec["first_difference"]
+    return rec
+
+
+def slice_c_tracks_with(ft, images, dev, features0):
+    """Slice C's matching, tracks and BA rounds again, with frame 0's
+    keypoints replaced by features0. Returns (tracks, L2 mean error)."""
+    import tempfile
+
+    from sat_bundleadjust_tpu_torch.tracks import matching
+
+    saved = (ft.features[0], ft.features_utm[0], ft.config["in_dir"], ft.config["out_dir"],
+             ft.pairwise_matches)
+    im = images[0]
+    try:
+        with tempfile.TemporaryDirectory(prefix="slice_c_cpu0_") as d:
+            ft.config["in_dir"] = ft.config["out_dir"] = d
+            ft.features[0] = features0
+            ft.features_utm[0] = matching.keypoints_to_utm_coords(features0, im.rpc, im.offset,
+                                                                  im.alt or 0.0)
+            ft.run_feature_matching()
+            bundle = ft.get_feature_tracks()
+    finally:
+        (ft.features[0], ft.features_utm[0], ft.config["in_dir"], ft.config["out_dir"],
+         ft.pairwise_matches) = saved
+    _, _, _, l2 = tracks_ba(bundle, images, dev, "slice C (frame 0 from the CPU)")
+    return int(bundle["C"].shape[1]), l2["reproj_after_mean"]
+
+
+def tracks_ba(bundle, images, dev, label):
+    """A track bundle through the BA stage: triangulation, soft-L1, outlier
+    removal, L2. Returns (p, p2, soft, l2)."""
+    from sat_bundleadjust_tpu_torch.ba import outliers
+    from sat_bundleadjust_tpu_torch.ba.params import BAParams
+    from sat_bundleadjust_tpu_torch.ba.solver import BASolver
+    from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
+
+    C = bundle["C"]
+    pts3d = init_pts3d(C, [im.rpc for im in images], "rpc", bundle["pairs_to_triangulate"],
+                       device=dev)
+    p = BAParams(C, pts3d, [im.rpc for im in images], "rpc", bundle["pairs_to_triangulate"],
+                 [im.center for im in images], {"verbose": False})
+    _, _, e_soft, soft = solve_round(BASolver(p, device=dev), SOFT_L1, label + " soft-L1")
+    p2 = outliers.rm_outliers(e_soft, p, device=dev)
+    _, _, _, l2 = solve_round(BASolver(p2, device=dev), None, label + " L2")
+    return p, p2, soft, l2
+
+
+def slice_i(dev, counters, images, ft):
+    """The package's single-image and single-pair entry points on slice C's
+    frames and tracks front end: detect_tpu on frame 0 with a mask over the
+    central half against slice C's batched detection; init_F_pair_to_match
+    of every pair against init_F_pairs_batched; match_pair on the card (the
+    single-pair kernel at full width) for three pairs against the staged
+    path's matches; the rotation conversions and RPCModel's methods on the
+    card."""
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.models import rotations as rot
+    from sat_bundleadjust_tpu_torch.models.rpc import (map_rpc, rpc_localization,
+                                                       rpc_projection)
+    from sat_bundleadjust_tpu_torch.ops import match as match_ops
+    from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
+    from sat_bundleadjust_tpu_torch.tracks import detection, matching
+    from sat_bundleadjust_tpu_torch.utils.geo import geojson_to_polygon
+
+    cfg = ft.config
+    h, w = SLICE_C["h"], SLICE_C["w"]
+    mask = np.zeros((h, w), np.uint8)
+    mask[h // 4:3 * h // 4, w // 4:3 * w // 4] = 1
+    frame0 = np.asarray(images[0].geotiff_path, np.float32)
+    pairs = [tuple(q) for q in ft.pairs_to_match]
+    F_batched = matching.init_F_pairs_batched(pairs, images)
+    matched = []
+    for q, (i, j) in enumerate(pairs[:SLICE_I_PAIRS]):
+        poly = geojson_to_polygon(ft.footprints[i]["geojson"]).intersection(
+            geojson_to_polygon(ft.footprints[j]["geojson"]))
+        idx_i, idx_j = matching.utm_bbox_indices(ft.features_utm[i], ft.features_utm[j], poly)
+        matched.append((q, i, j, idx_i, idx_j))
+
+    for k in counters:
+        k.launches = 0
+    torch.cuda.synchronize()
     t0 = time.time()
-    f_gpu = sift.detect_sift(ims[0], device=dev)
+    single = detection.detect_tpu(frame0, mask=mask, max_kp=int(cfg["FT_kp_max"]), device=dev)
     t1 = time.time()
-    f_cpu = sift.detect_sift(ims[0], device="cpu")
+    F_single = [matching.init_F_pair_to_match(h, w, images[i].rpc, images[j].rpc)
+                for (i, j) in pairs]
     t2 = time.time()
-    n_gpu, n_cpu = f_gpu.shape[0], f_cpu.shape[0]
-    same = n_gpu == n_cpu and bool(np.array_equal(f_gpu, f_cpu))
-    log("SIFT 512x512: card {} keypoints in {:.2f} s, CPU {} in {:.2f} s; identical arrays: "
-        "{}".format(n_gpu, t1 - t0, n_cpu, t2 - t1, same))
-    assert n_cpu > 100 and abs(n_gpu - n_cpu) <= 0.01 * n_cpu, (n_gpu, n_cpu)
-    assert np.array_equal(f_gpu[:, 4:], np.rint(f_gpu[:, 4:]))
-    return {"card": n_gpu, "cpu": n_cpu, "card_s": t1 - t0, "cpu_s": t2 - t1, "identical": same}
+    results = []
+    for q, i, j, idx_i, idx_j in matched:
+        fi, fj = ft.features[i][idx_i], ft.features[j][idx_j]
+        m, n_ratio, n_ransac = match_ops.match_pair(
+            fi, fj, F_single[q], rel_thr=float(cfg["FT_rel_thr"]),
+            abs_thr=float(cfg["FT_abs_thr"]), ransac_thr=cfg["FT_ransac"], device=dev)
+        results.append((m, n_ratio, n_ransac))
+    torch.cuda.synchronize()
+    t3 = time.time()
+    launches = {k.__name__: k.launches for k in counters}
+
+    # after the counters are read: comparisons
+    card0 = ft.features[0][~np.isnan(ft.features[0][:, 0])]
+    batched = detection._apply_mask(card0, mask)
+    single = detection._top_k_by_scale(single, None)
+    same_detection = single.shape == batched.shape and bool(np.array_equal(single, batched))
+
+    def unit(F, ref):
+        F = F / np.linalg.norm(F)
+        return -F if np.sum(F * ref) < 0 else F
+
+    f_err = max(float(np.abs(unit(Fs, unit(Fb, Fb)) - unit(Fb, Fb)).max())
+                for Fs, Fb in zip(F_single, F_batched))
+    agree, per_pair = [], []
+    for (q, i, j, idx_i, idx_j), (m, n_ratio, n_ransac) in zip(matched, results):
+        ops = match_ops.single_pair_operands(ft.features[i][idx_i], ft.features[j][idx_j],
+                                             F_single[q], match_ops.EPIPOLAR_THR, dev)
+        d1, d2, nn = nm.nn2_single(*ops)
+        plain = nm.nn2_plain(*[o[None] for o in ops[:6]],
+                             torch.tensor([ops[6]], dtype=torch.float32, device=dev))[0]
+        bits = bool(torch.equal(torch.stack([d1, d2, nn.float()]), plain))
+        single_m = matching._remap_and_filter(m, idx_i, idx_j, ft.features_utm[i],
+                                              ft.features_utm[j])
+        pm = ft.pairwise_matches
+        staged = pm[(pm[:, 2] == i) & (pm[:, 3] == j), :2]
+        a = set(map(tuple, np.asarray(single_m if single_m is not None else np.zeros((0, 2)),
+                                      np.int64)))
+        b = set(map(tuple, staged.astype(np.int64)))
+        share = len(a & b) / max(len(a | b), 1)
+        agree.append(share)
+        per_pair.append({"pair": (i, j), "rows": len(idx_i), "cols": len(idx_j),
+                         "ratio": n_ratio, "ransac": n_ransac, "single": len(a), "staged": len(b),
+                         "common": len(a & b), "agreement": share, "bit_identical": bits})
+        log("slice I match_pair pair {}: {} x {} keypoints in the UTM box, {} after the ratio "
+            "test, {} after RANSAC, {} after the UTM filter; staged path {}; {} in common "
+            "(agreement {:.4f} of the union); nn2_single bit-identical to plain: {}".format(
+                (i, j), len(idx_i), len(idx_j), n_ratio, n_ransac, len(a), len(b), len(a & b),
+                share, bits))
+
+    # rotations: 1000 seeded ones on the card, through every conversion
+    rng = np.random.RandomState(7)
+    ang = torch.as_tensor(rng.uniform(-np.pi, np.pi, (1000, 3)) * [1, 0.5, 1], device=dev)
+    R = rot.euler_angles_to_R(*ang.unbind(1))
+    q4 = rot.R_to_quaternion(R)
+    rot_err = {"R -> quaternion -> R": float((rot.quaternion_to_R(*q4) - R).abs().max()),
+               "quaternion -> Euler": float((torch.stack(rot.quaternion_to_euler(*q4), 1)
+                                             - ang).abs().max())}
+    axis, angle = rot.axis_angle_from_R(R)
+    rot_err["R -> axis-angle -> R"] = float((rot.axis_angle_to_R(axis, angle) - R).abs().max())
+    pts = torch.as_tensor(rng.randn(1000, 3), device=dev)
+    rot_err["Rodrigues vs the matrix"] = float(
+        (rot.rotate_rodrigues(pts, axis * angle[:, None]) - (R @ pts[..., None])[..., 0])
+        .abs().max())
+    assert all(v.device == ang.device for v in (*q4, axis, angle))
+
+    # RPCModel's host methods against the functions on the card, per view
+    g = np.linspace(-0.8, 0.8, 9)
+    rpc_err = [0.0, 0.0]
+    for im in images:
+        r = im.rpc.to_numpy()
+        LO, LA, AL = (np.asarray(v).ravel() for v in np.meshgrid(
+            float(r.lon_offset) + float(r.lon_scale) * g, float(r.lat_offset)
+            + float(r.lat_scale) * g, float(r.alt_offset) + float(r.alt_scale) * g[::2]))
+        card = map_rpc(lambda f: torch.as_tensor(np.asarray(f, np.float64), device=dev), r)
+        col, row = card.projection(LO, LA, AL)
+        cc, rc = rpc_projection(card, *(torch.as_tensor(v, device=dev) for v in (LO, LA, AL)))
+        rpc_err[0] = max(rpc_err[0], float(np.abs(cc.cpu().numpy() - col).max()),
+                         float(np.abs(rc.cpu().numpy() - row).max()))
+        lon, lat = card.localization(col, row, AL)
+        lo, la = rpc_localization(card, *(torch.as_tensor(v, device=dev) for v in (col, row, AL)))
+        rpc_err[1] = max(rpc_err[1], float(np.abs(lo.cpu().numpy() - lon).max()),
+                         float(np.abs(la.cpu().numpy() - lat).max()))
+
+    rec = {"launches": launches, "detect_s": t1 - t0, "F_s": t2 - t1, "match_s": t3 - t2,
+           "detect_keypoints": int(single.shape[0]), "detect_identical": same_detection,
+           "F_max_err": f_err, "pairs": per_pair, "agreement_min": min(agree),
+           "rotation_max_err": rot_err, "rpc_projection_max_px": rpc_err[0],
+           "rpc_localization_max_deg": rpc_err[1]}
+    log("slice I: detect_tpu on frame 0 with a mask over the central half {:.3f} s, {} "
+        "keypoints, identical to slice C's batched detection under the mask: {}; "
+        "init_F_pair_to_match of {} pairs {:.3f} s, max |F - batched F| {:.3g} (normalized, "
+        "sign-aligned; the CPU test's bar 1e-9); match_pair of {} pairs {:.3f} s; launches {}"
+        .format(rec["detect_s"], rec["detect_keypoints"], same_detection, len(pairs), rec["F_s"],
+                f_err, len(matched), rec["match_s"], launches))
+    log("slice I rotations on the card (1000 seeded): " + "; ".join(
+        "{} {:.3g}".format(k, v) for k, v in rot_err.items())
+        + "; RPCModel.projection / localization (host) against rpc_projection / "
+        "rpc_localization (card): {:.3g} px / {:.3g} deg".format(*rpc_err))
+    assert same_detection and single.shape[0] > 500, (single.shape, batched.shape)
+    assert f_err <= 1e-9, f_err
+    assert launches["nn2_single"] == len(matched), launches
+    assert launches["nn2_batched"] == launches["nn2_batched_i8"] == launches["schur_wz"] == 0
+    assert all(p["bit_identical"] for p in per_pair), per_pair
+    assert all(p["single"] > 100 for p in per_pair), per_pair
+    assert max(rot_err.values()) <= 1e-9 and max(rpc_err) <= 1e-9, (rot_err, rpc_err)
+    return rec
 
 
 def slice_d(dev, counters, images):
@@ -1785,11 +2252,14 @@ def main():
     rec["small_reference"] = small_reference(dev)
     c = slice_c(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz])
     rec["schur_wz"] = {"A": kernels["A"], "B": kernels["B"], "C": c["schur_wz"]}
-    images = c.pop("images")
-    rec["nn2"] = check_nn2(c.pop("ft"), images, dev)
+    images, ft = c.pop("images"), c.pop("ft")
+    rec["nn2"] = check_nn2(ft, images, dev)
     rec["detection_profile"] = profile_detection(images, dev)
     rec["slice_c"] = c
-    rec["sift_device_check"] = sift_device_check(dev)
+    rec["sift_device_check"] = sift_device_check(dev, images, ft, c)
+    rec["slice_i"] = slice_i(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single,
+                                   smv.schur_wz], images, ft)
+    del ft
     rec["slice_d"] = slice_d(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz],
                              images)
     del images
@@ -1856,7 +2326,8 @@ def main():
         entries.append({
             "name": name, "route": "cuda", "source": "sat_bundleadjust_tpu_torch/csrc/nn2_match.cu",
             "replaces": where,
-            "launches": (c["launches"][name] + rec["slice_d"]["launches"][name]
+            "launches": (c["launches"][name] + rec["slice_i"]["launches"][name]
+                         + rec["slice_d"]["launches"][name]
                          + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
                          + rec["slice_f"]["cli"]["launches"][name]
                          + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])
@@ -1865,7 +2336,8 @@ def main():
             "max_abs_err": k["max_abs_err"],
             "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": None,
-            "at": "slice C's largest staged chunk, B={B} n1={n1} n2={n2}".format(**k["shape"]),
+            "at": "slice C's largest staged chunk, B={B} n1={n1} n2={n2}; launches by slices C, "
+                  "I, D, E, F CLI, G, H2 reference, H2".format(**k["shape"]),
         })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

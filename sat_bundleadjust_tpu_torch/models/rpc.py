@@ -4,8 +4,9 @@ Counterpart of `sat_bundleadjust_tpu/models/rpc.py:48-450`: the model,
 batching, the RPC00B monomial basis and its derivatives, projection, and
 localization by a fixed-count Newton iteration on the forward rational
 model, and the file formats (IKONOS `KEY: value` text, json, GDAL geotiff
-tags). `RPCModel` is a bare NamedTuple: where the JAX model has methods
-(`to_numpy`, `write_to_file`, ...), call the functions of this module.
+tags). `RPCModel` is a NamedTuple whose methods are the JAX model's
+host-side conveniences (numpy projection and localization, copies, files);
+device code calls the functions of this module.
 
 Monomial order (RPC00B, x = normalized lat, y = normalized lon,
 z = normalized alt):
@@ -45,6 +46,32 @@ class RPCModel(NamedTuple):
     lat_scale: torch.Tensor
     lon_scale: torch.Tensor
     alt_scale: torch.Tensor
+
+    def projection(self, lon, lat, alt):
+        """Ground (lon, lat, alt) -> image (col, row), batched, evaluated on
+        the host in numpy (rpc_projection_np); device code calls
+        rpc_projection."""
+        return rpc_projection_np(rpc_to_numpy(self), _host(lon), _host(lat), _host(alt))
+
+    def localization(self, col, row, alt):
+        """Image (col, row) at altitude alt -> ground (lon, lat), batched, on
+        the host in numpy (rpc_localization_np); device code calls
+        rpc_localization."""
+        return rpc_localization_np(rpc_to_numpy(self), _host(col), _host(row), _host(alt))
+
+    def to_numpy(self):
+        return rpc_to_numpy(self)
+
+    def copy(self):
+        """A copy that shares no storage: tensors cloned, the rest copied
+        into numpy arrays."""
+        return map_rpc(lambda f: f.clone() if isinstance(f, torch.Tensor) else np.array(f), self)
+
+    def write_to_file(self, path):
+        write_rpc_file(self, path)
+
+    def to_geotiff_dict(self):
+        return rpc_to_geotiff_dict(self)
 
 
 def map_rpc(fn, rpc):

@@ -108,21 +108,8 @@ def match_pair(features_i, features_j, F=None, rel_thr=0.6, abs_thr=250.0,
         return None, 0, 0
 
     if dev.type == "cuda":
-        def t(a):
-            return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=dev)
-
-        pts_j = np.nan_to_num(features_j[:, :2])
-        hp_j = np.hstack([pts_j, np.ones((len(pts_j), 1))])
-        if F is not None:
-            h_i = np.hstack([np.nan_to_num(features_i[:, :2]), np.ones((len(features_i), 1))])
-            lines_i = h_i @ np.asarray(F).T
-            thr = float(epipolar_thr)
-        else:
-            lines_i = np.tile(np.array([[1.0, 0.0, 0.0]]), (len(features_i), 1))
-            thr = 1e9
         d1, d2, nn = nn2_match.nn2_single(
-            t(np.nan_to_num(features_i[:, 4:])), t(np.nan_to_num(features_j[:, 4:])),
-            t(lines_i), t(hp_j), t(valid_i), t(valid_j), thr)
+            *single_pair_operands(features_i, features_j, F, epipolar_thr, dev))
         d1, d2, nn_idx = d1.cpu().numpy(), d2.cpu().numpy(), nn.cpu().numpy()
         accepted = _accept(d1, d2, method, rel_thr, abs_thr) & (d1 < 5e11) & valid_i
         return _finalize_matches(features_i, features_j, nn_idx, accepted, ransac_thr)
@@ -137,6 +124,29 @@ def match_pair(features_i, features_j, F=None, rel_thr=0.6, abs_thr=250.0,
     )
     return _finalize_matches(features_i, features_j, nn_idx.cpu().numpy(),
                              accepted.cpu().numpy(), ransac_thr)
+
+
+def single_pair_operands(features_i, features_j, F, epipolar_thr, device):
+    """nn2_single's operands for one pair of (N, 132) keypoint arrays (NaN
+    rows are padding): descriptors, the epipolar lines F h_i of the rows,
+    the homogeneous points of the columns, validity masks (float32 tensors
+    on device) and the scalar threshold (1e9, no gate, without F)."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
+
+    features_i, features_j = np.asarray(features_i), np.asarray(features_j)
+    pts_j = np.nan_to_num(features_j[:, :2])
+    hp_j = np.hstack([pts_j, np.ones((len(pts_j), 1))])
+    if F is not None:
+        h_i = np.hstack([np.nan_to_num(features_i[:, :2]), np.ones((len(features_i), 1))])
+        lines_i = h_i @ np.asarray(F).T
+        thr = float(epipolar_thr)
+    else:
+        lines_i = np.tile(np.array([[1.0, 0.0, 0.0]]), (len(features_i), 1))
+        thr = 1e9
+    return (t(np.nan_to_num(features_i[:, 4:])), t(np.nan_to_num(features_j[:, 4:])),
+            t(lines_i), t(hp_j), t(~np.isnan(features_i[:, 0])), t(~np.isnan(features_j[:, 0])),
+            thr)
 
 
 def pack_pairs(pair_feats, pair_F, epipolar_thr=EPIPOLAR_THR, n1=None, n2=None, b_pad=None):

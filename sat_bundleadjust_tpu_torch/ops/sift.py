@@ -8,17 +8,23 @@ octave, C_DoG 0.0133, C_edge 10, lambda_ori 1.5, lambda_descr 6, 36
 orientation bins, 4x4x8 descriptors quantized to the integers 0..255.
 
 Each step keeps the JAX package's arithmetic and its order of operations in
-float32, so that on the CPU the two agree to the last bits wherever the
-libraries' elementary functions (exp, atan2, hypot, sin, cos, pow) and
-reductions agree:
+float32, so that on the CPU the two agree to the last bits up to the
+elementary functions of the orientation and descriptor stages:
 * the bilinear 2x upsampling is written out (weights 1, 0.75/0.25, 1 at the
   borders, as `jax.image.resize` normalizes them), not `F.interpolate`;
 * blurs are separable slice-and-accumulate sums with edge padding, in tap
   order, not a convolution;
 * the 3x3x3 extremum test is one max pool with -inf padding;
 * `lax.top_k` becomes a stable descending sort of the candidates (ties go
-  to the lowest index, as `lax.top_k` breaks them);
-* histograms are masked sums (no atomics on the card).
+  to the lowest index, as `lax.top_k` breaks them).
+
+The card gives the CPU's bits: every step is elementwise IEEE arithmetic in
+separate operations, which both devices round alike, or a sum whose result
+does not depend on the order of its terms. So atan2, hypot, exp, sin, cos
+and 2 ** x are the port's own float64 evaluations rounded to float32, a
+division by a constant divides by a device tensor, the orientation
+histograms and the descriptor bins are exact integer sums in float64, and
+the descriptor norms are sums in a fixed order.
 
 Output layout: (N, 132) float rows (col, row, scale, orientation, 128-dim
 descriptor) in the input image's pixel coordinates.
@@ -93,6 +99,147 @@ def _exp_f32(x):
     y = _fma(y, a * a, a) + 1.0
     out = y * torch.exp2(n)
     return torch.where(out < _F32_TINY, torch.zeros_like(out), out)
+
+
+def _div(x, c):
+    """x / c for a Python number c, divided element by element on every
+    device (the card's kernels multiply by the reciprocal of a host scalar
+    divisor, which is not the quotient's rounding)."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def _tree_sum(x):
+    """The sum over the leading dim of x in a fixed pairwise order, the same
+    on every device: the last half of the rows added onto the first half,
+    in place, until one row is left (an odd middle row waits for the next
+    round). x is a temporary of the caller's and is overwritten."""
+    n = x.shape[0]
+    while n > 1:
+        half = n // 2
+        x[:half] += x[n - half:n]
+        n -= half
+    return x[0]
+
+
+def _fixed_point(x, bits):
+    """Non-negative x (K, ...) as integers below 2 ** bits, in x's dtype:
+    x * 2 ** (bits - e) rounded, e the binary exponent of the largest value
+    of its row (that value < 2 ** e; e >= bits - 127, so that the scale is a
+    float32 number too). Scaling by a power of two and rounding are exact.
+    Sums of up to 2 ** (53 - bits) such integers are exact in float64, so
+    they do not depend on the order in which the CPU or the card adds them.
+    Returns (integers, e (K,) float64)."""
+    _, e = torch.frexp(x.reshape(x.shape[0], -1).amax(dim=1))
+    e = torch.clamp(e.double(), min=bits - 127.0)
+    scale = _pow2i(bits - e).to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
+    return torch.round(x * scale), e
+
+
+# The float32 elementary functions of the orientation and descriptor stages,
+# evaluated in float64 with Cephes' approximations (atan.c, sin.c, exp.c:
+# within 2.2e-16 of the true value on their reduced ranges) in separate
+# IEEE operations, then rounded to float32: the same bits on every device
+# (the libraries' atan2, sin, cos, exp and pow differ between the card and
+# the CPU in the last bit), and the correctly rounded float32 value on 2e6
+# seeded inputs of each.
+_ATAN_P = (-8.750608600031904122785e-1, -1.615753718733365076637e1, -7.500855792314704667340e1,
+           -1.228866684490136173410e2, -6.485021904942025371773e1)
+_ATAN_Q = (2.485846490142306297962e1, 1.650270098316988542046e2, 4.328810604912902668951e2,
+           4.853903996359136964868e2, 1.945506571482613964425e2)
+_T3P8 = 2.41421356237309504880  # tan(3 pi / 8)
+_MOREBITS = 6.123233995736765886130e-17  # pi / 2 - float64(pi / 2)
+_SIN_P = (1.58962301576546568060e-10, -2.50507477628578072866e-8, 2.75573136213857245213e-6,
+          -1.98412698295895385996e-4, 8.33333333332211858878e-3, -1.66666666666666307295e-1)
+_COS_P = (-1.13585365213876817300e-11, 2.08757008419747316778e-9, -2.75573141792967388112e-7,
+          2.48015872888517045348e-5, -1.38888888888730564116e-3, 4.16666666666665929218e-2)
+_PIO4_PARTS = (7.85398125648498535156e-1, 3.77489470793079817668e-8, 2.69515142907905952645e-15)
+_FOPI = 1.27323954473516268615  # 4 / pi
+
+
+def _polevl(x, coeffs, monic=False):
+    """Horner's rule, one multiply and one add a step (no fused multiply-
+    add); monic: a leading coefficient 1 before coeffs."""
+    y = torch.ones_like(x) if monic else torch.full_like(x, coeffs[0])
+    for c in (coeffs if monic else coeffs[1:]):
+        y = y * x + c
+    return y
+
+
+def _atan2_f32(y, x):
+    """float32 atan2(y, x) (the signed-zero quadrants included), through
+    Cephes' atan of |y| / |x| in float64."""
+    yd, xd = y.double(), x.double()
+    ay, ax = yd.abs(), xd.abs()
+    zero = torch.zeros_like(ax)
+    t = ay / torch.where((ay == 0) & (ax == 0), zero + 1.0, ax)  # atan2(0, 0) = 0
+    big = t > _T3P8
+    mid = ~big & (t > 0.66)
+    u = torch.where(big, -1.0 / torch.where(big, t, zero + 1.0),
+                    torch.where(mid, (t - 1.0) / (t + 1.0), t))
+    z = u * u
+    r = u * (z * _polevl(z, _ATAN_P) / _polevl(z, _ATAN_Q, monic=True)) + u
+    r = r + torch.where(big, zero + _MOREBITS, torch.where(mid, zero + 0.5 * _MOREBITS, zero))
+    r = torch.where(big, zero + np.pi / 2, torch.where(mid, zero + np.pi / 4, zero)) + r
+    r = torch.where(torch.signbit(xd), np.pi - r, r)
+    return torch.where(torch.signbit(yd), -r, r).to(_F32)
+
+
+def _sincos_f32(theta):
+    """float32 (sin, cos) of theta through Cephes' sin and cos in float64:
+    |theta| reduced by the multiple of pi / 4 in three parts, then the
+    octant's polynomial and sign."""
+    xd = theta.double()
+    ax = xd.abs()
+    j = torch.floor(ax * _FOPI)
+    j = torch.where(torch.fmod(j, 2.0) == 1.0, j + 1.0, j)
+    z = ((ax - j * _PIO4_PARTS[0]) - j * _PIO4_PARTS[1]) - j * _PIO4_PARTS[2]
+    zz = z * z
+    s = z + z * (zz * _polevl(zz, _SIN_P))
+    c = (1.0 - 0.5 * zz) + zz * zz * _polevl(zz, _COS_P)
+    octant = torch.fmod(j, 8.0)  # 0, 2, 4 or 6
+    swap = (octant == 2.0) | (octant == 6.0)
+    sin_v = torch.where(swap, c, s)
+    cos_v = torch.where(swap, s, c)
+    sin_v = torch.where((octant >= 4.0) != torch.signbit(xd), -sin_v, sin_v)
+    cos_v = torch.where((octant == 2.0) | (octant == 4.0), -cos_v, cos_v)
+    return sin_v.to(_F32), cos_v.to(_F32)
+
+
+_EXPD_P = (1.26177193074810590878e-4, 3.02994407707441961300e-2, 9.99999999999999999910e-1)
+_EXPD_Q = (3.00198505138664455042e-6, 2.52448340349684104192e-3, 2.27265548208155028766e-1,
+           2.00000000000000000009e0)
+_LOG2E = 1.4426950408889634073599
+_LN2 = 0.6931471805599453094172
+_LN2_PARTS = (6.93145751953125e-1, 1.42860682030941723212e-6)
+
+
+def _pow2i(n):
+    """2 ** n for integer-valued float64 n in [-1022, 1023], from its bits."""
+    return ((n.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _exp_via_f64(x):
+    """float32 exp(x) through Cephes' exp in float64: x = n ln2 + r with
+    |r| <= ln2 / 2, a rational approximation of exp(r), scaled by 2 ** n
+    (x below -700 taken as -700, whose exp is 0 in float32)."""
+    xd = torch.clamp(x.double(), min=-700.0)
+    n = torch.floor(_LOG2E * xd + 0.5)
+    r = (xd - n * _LN2_PARTS[0]) - n * _LN2_PARTS[1]
+    rr = r * r
+    p = r * _polevl(rr, _EXPD_P)
+    return ((1.0 + 2.0 * (p / (_polevl(rr, _EXPD_Q) - p))) * _pow2i(n)).to(_F32)
+
+
+def _exp2_f32(t):
+    """float32 2 ** t: exp(t ln2) with the product in float64."""
+    return _exp_via_f64(t.double() * _LN2)
+
+
+def _hypot_f32(x, y):
+    """float32 hypot(x, y): the float64 square root of the float64 sum of
+    the two exact squares, rounded to float32."""
+    xd, yd = x.double(), y.double()
+    return torch.sqrt(xd * xd + yd * yd).to(_F32)
 
 
 def _mod(x, y):
@@ -306,13 +453,19 @@ def _orientation(mag, ang, dx, dy, sigma):
     d2 = dx[:, None, :] * dx[:, None, :] + dy[:, :, None] * dy[:, :, None]
     win_sigma = LAMBDA_ORI * sigma
     ws2 = (win_sigma * win_sigma)[:, None, None]
-    w = torch.exp(-d2 / (2 * ws2)) * (d2 <= ((3 * win_sigma) * (3 * win_sigma))[:, None, None])
+    w = _exp_via_f64(-d2 / (2 * ws2)) * (d2 <= ((3 * win_sigma) * (3 * win_sigma))[:, None, None])
     wm = (w * mag).reshape(K, -1)
-    fbin = (ang.reshape(K, -1) + np.pi) / (2 * np.pi) * N_BINS
+    fbin = _div(ang.reshape(K, -1) + np.pi, 2 * np.pi) * N_BINS
     bins = _mod(torch.floor(fbin), torch.tensor(float(N_BINS), dtype=_F32, device=mag.device))
-    hist = torch.stack([torch.sum(wm * (bins == b), dim=1) for b in range(N_BINS)], dim=1)
+    # each sample's weight into its bin, as 42-bit integers: 1681 of them
+    # sum exactly, in any order (the scatter's order on the card is not
+    # fixed)
+    wq, e = _fixed_point(wm, 42)
+    hist = torch.zeros((K, N_BINS), dtype=torch.float64, device=mag.device)
+    hist = hist.scatter_add_(1, bins.to(torch.int64), wq.double())
+    hist = (hist * _pow2i(e - 42)[:, None]).to(_F32)
     for _ in range(6):
-        hist = (torch.roll(hist, 1, 1) + hist + torch.roll(hist, -1, 1)) / 3.0
+        hist = _div(torch.roll(hist, 1, 1) + hist + torch.roll(hist, -1, 1), 3.0)
 
     rows = torch.arange(K, device=mag.device)
 
@@ -340,7 +493,7 @@ def _descriptor(mag2d, ang2d, dx, dy, sigma, theta):
     """4x4x8 descriptors of K keypoints (K, 128), quantized to 0..255."""
     K = mag2d.shape[0]
     radius = LAMBDA_DESCR * sigma * (N_HIST + 1.0) / N_HIST
-    ct, st = torch.cos(theta), torch.sin(theta)
+    st, ct = _sincos_f32(theta)
     ox = dx[:, None, :] + torch.zeros_like(dy)[:, :, None]
     oy = dy[:, :, None] + torch.zeros_like(dx)[:, None, :]
     ct3, st3, r3 = ct[:, None, None], st[:, None, None], radius[:, None, None]
@@ -349,33 +502,49 @@ def _descriptor(mag2d, ang2d, dx, dy, sigma, theta):
     mag = mag2d.reshape(K, -1)
     ang = ang2d.reshape(K, -1) - theta[:, None]
     ratio2 = ((N_HIST + 1.0) / N_HIST) ** 2
-    w = torch.exp(-(us * us + vs * vs) * ratio2 / 2.0)
+    w = _exp_via_f64(-(us * us + vs * vs) * ratio2 / 2.0)
     hx = (us + 1.0) / 2.0 * N_HIST - 0.5
     hy = (vs + 1.0) / 2.0 * N_HIST - 0.5
-    ho = _mod(ang / (2 * np.pi) * N_ORI, torch.tensor(float(N_ORI), dtype=_F32, device=mag.device))
-    bins4 = torch.arange(N_HIST, dtype=_F32, device=mag.device)
-    bins8 = torch.arange(N_ORI, dtype=_F32, device=mag.device)
-    Wx = torch.clamp_min(1.0 - (hx[..., None] - bins4).abs(), 0.0)  # (K, S, 4)
-    Wy = torch.clamp_min(1.0 - (hy[..., None] - bins4).abs(), 0.0)
-    do_ = (ho[..., None] - bins8).abs()
-    Wo = torch.clamp_min(1.0 - torch.minimum(do_, N_ORI - do_), 0.0)  # (K, S, 8)
+    ho = _mod(_div(ang, 2 * np.pi) * N_ORI,
+              torch.tensor(float(N_ORI), dtype=_F32, device=mag.device))
     m = w * mag
-    Wyx = Wy[..., :, None] * Wx[..., None, :]  # (K, S, 4, 4)
-    lhs = m[..., None] * Wyx.reshape(K, -1, N_HIST * N_HIST)  # (K, S, 16)
-    desc = torch.bmm(lhs.transpose(1, 2), Wo)  # (K, 16, 8)
-    d = desc.reshape(K, -1)
-    norm = torch.linalg.vector_norm(d, dim=1, keepdim=True) + 1e-12
+    # the trilinear weights 1 - |h - bin| (circular in the orientation) are
+    # non-zero at the two bins around h only: those two per axis
+    x0, y0 = torch.floor(hx), torch.floor(hy)
+    o0 = torch.floor(ho)
+    o0 = torch.where(o0 == N_ORI, torch.zeros_like(o0), o0)  # ho rounded up to 8
+    xs = torch.stack([x0, x0 + 1.0], dim=-1)  # (K, S, 2)
+    ys = torch.stack([y0, y0 + 1.0], dim=-1)
+    os_ = torch.stack([o0, torch.where(o0 == N_ORI - 1, torch.zeros_like(o0), o0 + 1.0)], dim=-1)
+    wx = torch.clamp_min(1.0 - (hx[..., None] - xs).abs(), 0.0) * ((xs >= 0) & (xs < N_HIST))
+    wy = torch.clamp_min(1.0 - (hy[..., None] - ys).abs(), 0.0) * ((ys >= 0) & (ys < N_HIST))
+    do_ = (ho[..., None] - os_).abs()
+    wo = torch.clamp_min(1.0 - torch.minimum(do_, N_ORI - do_), 0.0)
+    lhs = m[..., None, None] * (wy[..., :, None] * wx[..., None, :])  # (K, S, 2, 2)
+    # each sample's 8 terms lhs * wo (exact in float64) as 42-bit integers of
+    # its keypoint's largest term, summed into their (y, x, o) bins: 1681 of
+    # them sum exactly, in any order (the scatter's order on the card is not
+    # fixed)
+    terms = (lhs.double()[..., None] * wo.double()[..., None, None, :]).reshape(K, -1, 8)
+    tq, e = _fixed_point(terms, 42)
+    idx = ((torch.clamp(ys, 0, N_HIST - 1)[..., :, None, None] * N_HIST
+            + torch.clamp(xs, 0, N_HIST - 1)[..., None, :, None]) * N_ORI
+           + os_[..., None, None, :]).reshape(K, -1).to(torch.int64)
+    acc = torch.zeros((K, N_HIST * N_HIST * N_ORI), dtype=torch.float64, device=mag.device)
+    acc = acc.scatter_add_(1, idx, tq.reshape(K, -1))
+    d = (acc * _pow2i(e - 42)[:, None]).to(_F32)
+    norm = torch.sqrt(_tree_sum((d * d).t().contiguous()))[:, None] + 1e-12
     d = torch.clamp_max(d / norm, 0.2)
-    norm2 = torch.linalg.vector_norm(d, dim=1, keepdim=True) + 1e-12
+    norm2 = torch.sqrt(_tree_sum((d * d).t().contiguous()))[:, None] + 1e-12
     return torch.clamp_max(torch.floor(512.0 * d / norm2), 255.0)
 
 
-def _orientation_and_descriptor(ss, kp_x, kp_y, kp_sigma_oct, kp_level):
-    """Per-keypoint orientations and descriptors over one contiguous
-    (2R+3)^2 patch per keypoint (jax _orientation_and_descriptor).
+def _gradients(ss, kp_x, kp_y, kp_level):
+    """Gradient magnitudes and angles over one contiguous (2R+3)^2 patch
+    per keypoint, and the patch grid's offsets from the keypoint.
 
-    ss (S, H, W) scale space of one image's octave. Returns thetas, descs,
-    thetas2, descs2, valid2."""
+    ss (S, H, W) scale space of one image's octave. Returns mag, ang
+    (K, P-2, P-2), dx, dy (K, P-2)."""
     S_lv, H_im, W_im = ss.shape
     flat = ss.reshape(S_lv * H_im, W_im)
     P = min(2 * _PATCH_R + 3, H_im, W_im)
@@ -388,15 +557,28 @@ def _orientation_and_descriptor(ss, kp_x, kp_y, kp_sigma_oct, kp_level):
     patches = flat[(rows[:, None] + ar)[:, :, None], (x0[:, None] + ar)[:, None, :]]  # (K, P, P)
     gx = 0.5 * (patches[:, 1:-1, 2:] - patches[:, 1:-1, :-2])
     gy = 0.5 * (patches[:, 2:, 1:-1] - patches[:, :-2, 1:-1])
-    mag = torch.hypot(gx, gy)
-    ang = torch.atan2(gy, gx)
+    mag = _hypot_f32(gx, gy)
+    ang = _atan2_f32(gy, gx)
     grid = torch.arange(P - 2, dtype=_F32, device=ss.device)
     dx = (x0.to(_F32)[:, None] + 1.0 + grid[None]) - kp_x[:, None]
     dy = (y0.to(_F32)[:, None] + 1.0 + grid[None]) - kp_y[:, None]
+    return mag, ang, dx, dy
+
+
+def _orientation_and_descriptor(ss, kp_x, kp_y, kp_sigma_oct, kp_level):
+    """Per-keypoint orientations and descriptors (jax
+    _orientation_and_descriptor). Returns thetas, descs, thetas2, descs2,
+    valid2."""
+    mag, ang, dx, dy = _gradients(ss, kp_x, kp_y, kp_level)
     theta1, theta2, valid2 = _orientation(mag, ang, dx, dy, kp_sigma_oct)
     desc1 = _descriptor(mag, ang, dx, dy, kp_sigma_oct, theta1)
     desc2 = _descriptor(mag, ang, dx, dy, kp_sigma_oct, theta2)
     return theta1, desc1, theta2, desc2, valid2
+
+
+def _sigma_oct(s, n_scales):
+    """A keypoint's blur in octave pixels from its DoG level coordinate s."""
+    return SIGMA_MIN / DELTA_MIN * _exp2_f32(_div(s, n_scales))
 
 
 def _sig_inc(n_scales):
@@ -465,7 +647,7 @@ def _describe_buckets(octs, buckets, n_scales, fetch_k=None):
                         torch.zeros(slots, dtype=torch.int64, device=ss.device))
                     sel = torch.sort(score, descending=True, stable=True).indices[:bucket]
                     kp = {k: v[sel] for k, v in kp.items()}
-                sigma_oct = SIGMA_MIN / DELTA_MIN * torch.pow(2.0, kp["s"] / n_scales)
+                sigma_oct = _sigma_oct(kp["s"], n_scales)
                 level = torch.clamp(torch.round(kp["s"]).to(torch.int64), 0, n_scales + 2)
                 parts = [[], [], [], [], []]
                 for c0 in range(0, kp["x"].shape[0], _DESCRIBE_CHUNK):
@@ -476,7 +658,7 @@ def _describe_buckets(octs, buckets, n_scales, fetch_k=None):
                         acc.append(r)
                 th, de, th2, de2, v2 = [torch.cat(p) for p in parts]
                 v2 = v2 & kp["valid"]
-                abs_sigma = delta / DELTA_MIN * SIGMA_MIN * torch.pow(2.0, kp["s"] / n_scales)
+                abs_sigma = delta / DELTA_MIN * SIGMA_MIN * _exp2_f32(_div(kp["s"], n_scales))
                 col, row = kp["x"] * delta, kp["y"] * delta
                 for theta, desc, vv in ((th, de, kp["valid"]), (th2, de2, v2)):
                     geom_parts.append(torch.stack([col, row, abs_sigma, theta], dim=1))
@@ -521,6 +703,17 @@ def _auto_chunk(h, w, dev):
     return max(1, min(16, int(free // 3 // max(_BYTES_PER_PX * h * w, 1))))
 
 
+def _normalized_stack(images, dev):
+    """Same-shape grayscale images, each scaled to [0, 1], as one (B, H, W)
+    float32 tensor on dev."""
+    ims = []
+    for image in images:
+        image = np.asarray(image, dtype=np.float32)
+        lo, hi = np.min(image), np.max(image)
+        ims.append((image - lo) / max(hi - lo, 1e-12))
+    return torch.as_tensor(np.stack(ims), device=dev)
+
+
 def detect_sift(image, thresh_dog=0.0133, n_octaves=8, n_scales=3, max_kp=None,
                 max_kp_per_octave=MAX_KP_PER_OCTAVE, device=None):
     """Full SIFT detection on one grayscale image; (N, 132) numpy array."""
@@ -551,12 +744,7 @@ def detect_sift_batch(images, thresh_dog=0.0133, n_octaves=8, n_scales=3,
                 batch_chunk=chunk, device=dev,
             ))
         return out
-    ims = []
-    for image in images:
-        image = np.asarray(image, dtype=np.float32)
-        lo, hi = np.min(image), np.max(image)
-        ims.append((image - lo) / max(hi - lo, 1e-12))
-    im = torch.as_tensor(np.stack(ims), device=dev)
+    im = _normalized_stack(images, dev)
 
     with torch.no_grad():
         thresh = torch.tensor(thresh_dog, dtype=_F32, device=dev)

@@ -256,6 +256,9 @@ class DistributedLM:
         if not dist.is_initialized():
             return t
         t = t.contiguous()
+        if self.stats is None:  # outside a solve (cost): nothing to count
+            dist.all_reduce(t, group=self.mesh.group)
+            return t
         self.stats["allreduces"] += 1
         if self.time_collectives and t.device.type == "cuda":
             torch.cuda.synchronize(t.device)
@@ -269,6 +272,13 @@ class DistributedLM:
     def _cost(self, cam, pts, loss, f_scale):
         r = self.local_residuals(cam, pts)
         return self._reduce(loss_cost(loss, r, f_scale).reshape(1))[0], r
+
+    def cost(self, cam, pts):
+        """The loss of (cam, pts) under the configuration's loss and f_scale,
+        summed over the ranks (one all-reduce): a float, the same on every
+        rank. Called on every rank, outside solve."""
+        c, _ = self._cost(self._put(cam), self._put(pts), self.cfg.loss, self.cfg.f_scale)
+        return float(c)
 
     def _put(self, x):
         return torch.as_tensor(x, dtype=torch.float64, device=self.mesh.device)
@@ -372,6 +382,7 @@ class DistributedLM:
             "err_fin": errs[1],
         }
         info.update(stats)
+        self.stats = None
         info["wall_time"] = time.time() - t_start
         self.last_info = {k: v for k, v in info.items() if k not in ("err0", "err_fin")}
         return cam, pts, info

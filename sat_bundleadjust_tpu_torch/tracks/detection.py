@@ -63,6 +63,19 @@ def detect_opencv(image, mask=None):
     return np.array([[k.pt[0], k.pt[1], k.size, k.angle, *d] for k, d in zip(kp, des)])
 
 
+def detect_tpu(image, mask=None, thresh_dog=0.0133, n_octaves=8, n_scales=3, max_kp=None,
+               device=None):
+    """The package's SIFT (ops/sift.py) on one image, on `device` (default:
+    the card); with a mask, the keypoints inside it. (N, 132) rows."""
+    from sat_bundleadjust_tpu_torch.ops.sift import detect_sift
+
+    feats = detect_sift(np.asarray(image, dtype=np.float32), thresh_dog=thresh_dog,
+                        n_octaves=n_octaves, n_scales=n_scales, max_kp=max_kp, device=device)
+    if mask is not None and feats.shape[0] > 0:
+        feats = _apply_mask(feats, mask)
+    return feats
+
+
 BACKENDS = ("tpu", "opencv")
 
 

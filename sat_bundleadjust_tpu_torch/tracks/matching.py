@@ -198,6 +198,34 @@ def _virtual_mesh(h, w, rpc, n=5):
     )
 
 
+def init_F_pair_to_match(h, w, rpc_i, rpc_j):
+    """Affine fundamental matrix of one pair from the 5^3 grid of RPC virtual
+    matches of an h x w image (host numpy; init_F_pairs_batched does every
+    pair at once)."""
+    cols, rows, alts = _virtual_mesh(h, w, rpc_i)
+    lons, lats = rpc_i.localization(cols, rows, alts)
+    x1, y1 = rpc_i.projection(lons, lats, alts)
+    x2, y2 = rpc_j.projection(lons, lats, alts)
+    return affine_fundamental_matrix(np.vstack([x1, y1, x2, y2]).T)
+
+
+def affine_fundamental_matrix(matches):
+    """Gold Standard affine F of (N, 4) matches (x1, y1, x2, y2)."""
+    X = matches[:, [2, 3, 0, 1]]
+    N = len(X)
+    XX = np.sum(X, axis=0) / N
+    A = X - np.tile(XX, (N, 1))
+    _, _, V = np.linalg.svd(A)
+    Nv = V[-1, :]
+    F = np.zeros((3, 3))
+    F[0, 2] = Nv[0]
+    F[1, 2] = Nv[1]
+    F[2, 0] = Nv[2]
+    F[2, 1] = Nv[3]
+    F[2, 2] = -np.dot(Nv, XX)
+    return F
+
+
 def init_F_pairs_batched(pairs_to_match, images):
     """Affine fundamental matrices of every pair, host numpy: localization
     once per unique first image, one projection per pair, one batched SVD."""

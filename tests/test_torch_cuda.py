@@ -547,6 +547,78 @@ def test_device_trace_on_the_card(cuda, tmp_path, monkeypatch):
     assert len(kernels) >= 6, len(kernels)
 
 
+@pytest.mark.cuda
+def test_sift_on_the_card_gives_the_cpu_arrays(cuda):
+    """The port's SIFT on a 512x512 render gives, on the card, the CPU's
+    arrays bit for bit (keypoints, scales, orientations, descriptors).
+
+    The bar is identity, not tests/test_torch_sift.py's tolerances: every
+    stage is elementwise IEEE arithmetic in separate operations, which both
+    devices round alike, or a reduction whose result does not depend on the
+    order of its terms. The library calls that differ between the card and
+    the CPU in the last bits (division by a host scalar, which the card
+    turns into a product with its reciprocal; atan2, hypot, exp, sin, cos,
+    pow; the histogram and descriptor sums; the norms; chip_smoke.py's
+    sift_device_check measures each) are replaced by the port's own float64
+    polynomials, exact integer sums and a fixed-order tree (ops/sift.py)."""
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    ims, _ = demo.render_synthetic_images(n_cam=1, h=512, w=512, seed=0, alt=0.0, device=cuda)
+    f_card = sift.detect_sift(ims[0], device=cuda)
+    f_cpu = sift.detect_sift(ims[0], device="cpu")
+    assert f_cpu.shape[0] > 1000
+    assert f_card.shape == f_cpu.shape and np.array_equal(f_card, f_cpu)
+
+
+@pytest.mark.cuda
+def test_detect_tpu_on_the_card_is_the_batched_detection(cuda):
+    """detect_tpu of one frame with a mask over its central half, on the
+    card, is the batched detection of that frame (with another frame)
+    restricted by the same mask: the same arrays, ordered by scale."""
+    from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.tracks.detection import (_apply_mask, _top_k_by_scale,
+                                                            detect_tpu)
+
+    ims, _ = demo.render_synthetic_images(n_cam=2, h=512, w=512, seed=0, alt=0.0, device=cuda)
+    mask = np.zeros((512, 512), np.uint8)
+    mask[128:384, 128:384] = 1
+    single = _top_k_by_scale(detect_tpu(ims[0], mask=mask, device=cuda), None)
+    batched = _top_k_by_scale(_apply_mask(sift.detect_sift_batch(ims, device=cuda)[0], mask), None)
+    assert single.shape[0] > 100 and np.array_equal(single, batched)
+
+
+@pytest.mark.cuda
+def test_match_pair_on_the_card_launches_nn2_single(cuda):
+    """match_pair on the card with the pair's F from init_F_pair_to_match
+    launches the single-pair kernel once (its counter), never the CPU
+    matcher, and the kernel on the same operands is bit-identical to its
+    plain version (integer descriptors); the matches lie on the F's
+    epipolar lines within the gate."""
+    from sat_bundleadjust_tpu_torch.ops import match as match_ops
+    from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.tracks.matching import init_F_pair_to_match
+
+    ims, rpcs = demo.render_synthetic_images(n_cam=2, h=512, w=512, seed=0, alt=0.0,
+                                             device=cuda)
+    fi, fj = sift.detect_sift_batch(ims, device=cuda)
+    F = init_F_pair_to_match(512, 512, rpcs[0], rpcs[1])
+    before = (nm.nn2_single.launches, nm.nn2_batched.launches, nm.nn2_batched_i8.launches)
+    matches, n_ratio, n_ransac = match_ops.match_pair(fi, fj, F, device=cuda)
+    assert (nm.nn2_single.launches, nm.nn2_batched.launches, nm.nn2_batched_i8.launches) == (
+        before[0] + 1, before[1], before[2])
+    assert matches is not None and n_ransac == matches.shape[0] > 50 and n_ratio >= n_ransac
+    ops = match_ops.single_pair_operands(fi, fj, F, match_ops.EPIPOLAR_THR, cuda)
+    d1, d2, nn = nm.nn2_single(*ops)
+    ref = nm.nn2_plain(*[o[None] for o in ops[:6]],
+                       torch.tensor([ops[6]], dtype=torch.float32, device=cuda))[0]
+    assert torch.equal(torch.stack([d1, d2, nn.float()]), ref)
+    h_i = np.hstack([fi[matches[:, 0], :2], np.ones((len(matches), 1))])
+    h_j = np.hstack([fj[matches[:, 1], :2], np.ones((len(matches), 1))])
+    lines = h_i @ F.T
+    dist = np.abs(np.sum(lines * h_j, axis=1)) / np.hypot(lines[:, 0], lines[:, 1])
+    assert dist.max() <= match_ops.EPIPOLAR_THR * (1 + 1e-5)  # the kernel's gate is f32
+
+
 def _dist_rank(rank, world, port, backend, out):
     """A rank of test_distributed_solve_on_the_card: the 100-camera demo
     problem through parallel/dist_solver on the card."""
