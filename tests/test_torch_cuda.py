@@ -588,6 +588,31 @@ def test_detect_tpu_on_the_card_is_the_batched_detection(cuda):
 
 
 @pytest.mark.cuda
+def test_bench_ba_mode_on_the_card(cuda, monkeypatch):
+    """The port's bench (`sat_bundleadjust_tpu_torch/bench.py`) in ba mode at
+    10 cameras and 2000 points on the card: the parity gate holds the
+    kernel within 2e-6 of max|wz| of its plain version and 5e-5 of the aos
+    form, schur_wz launches equal the matvecs of the six solves (the
+    warm-up and five timed) plus the gate's own call, and the solve ends
+    below 0.100 px."""
+    from sat_bundleadjust_tpu_torch import bench
+
+    monkeypatch.setenv("SATBA_BENCH_CAMS", "10")
+    monkeypatch.setenv("SATBA_BENCH_PTS", "2000")
+    smv.schur_wz.launches = 0
+    result, rec = bench.bench_ba(cuda)
+    torch.cuda.synchronize()
+    assert rec["gate"]["vs_plain"] <= bench.GATE_PLAIN
+    assert rec["gate"]["vs_aos"] <= bench.GATE_AOS
+    matvecs = sum(s["matvecs"] for s in rec["solves"])
+    assert len(rec["solves"]) == 6 and matvecs > 0
+    assert smv.schur_wz.launches == matvecs + rec["gate"]["schur_wz_calls"], (
+        smv.schur_wz.launches, matvecs)
+    assert rec["reproj_after"] <= 0.100
+    assert result["unit"].startswith("iter/s (10 cams, 2000 pts, 8000 obs, cuda ")
+
+
+@pytest.mark.cuda
 def test_match_pair_on_the_card_launches_nn2_single(cuda):
     """match_pair on the card with the pair's F from init_F_pair_to_match
     launches the single-pair kernel once (its counter), never the CPU

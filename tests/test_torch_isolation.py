@@ -27,11 +27,13 @@ def _port_sources():
                 yield os.path.join(root, f)
 
 
-@pytest.mark.parametrize("path", [os.path.join(REPO, "chip_smoke.py")] + sorted(_port_sources()),
-                         ids=lambda p: os.path.relpath(p, REPO))
+@pytest.mark.parametrize("path", [os.path.join(REPO, "chip_smoke.py"),
+                                  os.path.join(REPO, "examples", "synthetic_demo_torch.py")]
+                         + sorted(_port_sources()), ids=lambda p: os.path.relpath(p, REPO))
 def test_no_jax_imports(path):
-    """An AST scan of every module of the port (and of chip_smoke.py):
-    no import of jax, jaxlib or sat_bundleadjust_tpu, at any depth."""
+    """An AST scan of every module of the port (and of chip_smoke.py and the
+    port's demo): no import of jax, jaxlib or sat_bundleadjust_tpu, at any
+    depth."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
     bad = []
