@@ -27,9 +27,19 @@ no result line, where CUDA is not available. It
   5. slice B: an L2 solve at the 1000-camera time-series scale (200 000
      tracks, 800 000 observations), which must end at a mean reprojection
      error of at most 0.100 px;
-  6. re-runs the L2 solve of each slice under torch.profiler and prints
-     the device's busy time per LM iteration, its idle share and the
-     kernels that take the device time;
+  6. solves run their LM iterations as CUDA graphs (ops/lm.build_solve:
+     captured at a problem's first solve under a loss, after one eager LM
+     iteration where the problem is the first of its kind on the card):
+     each solve's host syncs are held to ceil(n / k) + 1 a step of n CG
+     iterations (k the CG block: 8 replayed, 1 eager) and its schur_wz
+     launches to its matvecs. The L2 solve of each slice (and of slices F
+     and J below) runs again replayed (no capture) and then eagerly
+     (graphs=False, one CG iteration a block): the same bits of cameras and
+     points, the same LM and CG iterations, both walls, LM it/s, host
+     syncs, masked CG iterations, capture time and replays; both modes are
+     re-run under torch.profiler, which prints the device's busy time per
+     LM iteration, its idle share and the kernels that take the device
+     time;
   7. solves a 16-camera problem on the CPU (plain operator) and on the
      card (kernel), which must agree;
   8. slice C: the tracks front end at the config #2 scale (10 views of
@@ -40,7 +50,11 @@ no result line, where CUDA is not available. It
      the mean reprojection error from above 0.5 px to below 0.3 px;
   9. holds the three 2-NN entry points against their plain versions at the
      operands of slice C's largest kernel chunk, and times them (CUDA
-     events; achieved TOP/s and share of the bound);
+     events; achieved TOP/s and share of the bound, the f32 kernel's time
+     before its rounding repair beside it); on fractional descriptors the
+     f32 kernel's d1 must lie within 0.5 eps * S of exact distances on
+     average and every matched row within 2 x 16 eps * S of its exact
+     nearest valid, gated column;
  10. re-runs the detection of two of slice C's frames under torch.profiler
      (device busy time, idle share, top kernels);
  11. the card's SIFT against the CPU's: a 512x512 render and slice C's
@@ -122,7 +136,8 @@ no result line, where CUDA is not available. It
      through the int8 2-NN kernel with its gate off, RANSAC, tracks), which
      must launch nn2_batched_i8 and not nn2_batched and find tracks, and
      whose largest int8 call (all 15 pairs) must give its plain version's
-     bits; then `python -m sat_bundleadjust_tpu_torch.bench` as a child
+     bits; ba mode's problem on a solver of its own, captured against
+     eager (step 6); then `python -m sat_bundleadjust_tpu_torch.bench` as a child
      process at 10 cameras and 2000 points, whose last line must be the
      bench's JSON object; it prints both modes' JSON lines and report
      lines. It runs last, so that slices A-H measure what they did before
@@ -214,6 +229,9 @@ SLICE_J_DEFAULTS = {"n_cam": 50, "n_pts": 20000, "n_obs": 80000, "images": 6, "h
 SLICE_J_MAX_REPROJ = 0.100
 SLICE_J_MODULE_ENV = {"SATBA_BENCH_CAMS": "10", "SATBA_BENCH_PTS": "2000"}
 SLICE_J_TIMEOUT_S = 300
+# the f32 2-NN kernel's times at slice C's chunk before its rounding repair
+# (PR 10's chip run 2, H100 80GB HBM3, 700 W)
+NN2_F32_BEFORE_MS = {"nn2_batched": 20.8669, "nn2_single": 0.5224}
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 
 
@@ -382,36 +400,82 @@ def check_schur_wz(tag, p, solver):
     return rec
 
 
-def solve_round(solver, ls, label):
+def solve_round(solver, ls, label, graphs=True):
+    """One solve of `solver` (its LM iterations as CUDA graphs, or eagerly
+    with graphs=False), timed; its counters, and the host reads checked
+    against ceil(n / k) + 1 for each LM step of n CG iterations (k the CG
+    block)."""
     import numpy as np
     import torch
 
+    from sat_bundleadjust_tpu_torch.ops import lm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
 
     torch.cuda.synchronize()
     launches0 = smv.schur_wz.launches
     t0 = time.time()
-    _, (cam, pts), e0, e1, info = solver.solve(ls)
+    _, (cam, pts), e0, e1, info = solver.solve(ls, graphs=graphs)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = smv.schur_wz.launches - launches0
+    k = lm.cg_block(solver.config(ls).cg_iters or lm.default_cg_iters(solver.p.n_cam), graphs)
+    bound = sum(-(-n // k) + 1 for n in info["cg_steps"])
     rec = {
         "iterations": info["iterations"], "wall_s": wall,
         "lm_it_per_s": info["iterations"] / wall,
         "reproj_before_mean": float(np.mean(e0)), "reproj_before_median": float(np.median(e0)),
         "reproj_after_mean": float(np.mean(e1)), "reproj_after_median": float(np.median(e1)),
         "host_syncs": info["host_syncs"], "cg_iterations": info["cg_iterations"],
-        "matvecs": info["matvecs"], "kernel_launches": launches, "mode": solver.mode,
+        "cg_masked": info["cg_masked"], "cg_steps": info["cg_steps"], "cg_block": k,
+        "host_sync_bound": bound, "matvecs": info["matvecs"],
+        "graph_replays": info["graph_replays"], "capture_s": info["capture_s"],
+        "graphs": graphs, "kernel_launches": launches, "mode": solver.mode,
     }
     assert np.all(np.isfinite(e1)) and e1.shape == (solver.p.n_obs,)
     assert launches == info["matvecs"] > 0, (label, launches, info["matvecs"])
-    log("{}: {} LM iterations in {:.3f} s ({:.2f} it/s); reprojection mean/median "
-        "{:.4f}/{:.4f} -> {:.4f}/{:.4f} px; {} host syncs, {} CG iterations, {} matvecs, "
-        "{} schur_wz launches".format(
-            label, rec["iterations"], wall, rec["lm_it_per_s"], rec["reproj_before_mean"],
-            rec["reproj_before_median"], rec["reproj_after_mean"], rec["reproj_after_median"],
-            rec["host_syncs"], rec["cg_iterations"], rec["matvecs"], launches))
+    assert info["host_syncs"] <= bound, (label, info["host_syncs"], bound)
+    assert (info["graph_replays"] > 0) == graphs, (label, info["graph_replays"])
+    log("{} ({}): {} LM iterations in {:.3f} s ({:.2f} it/s); reprojection mean/median "
+        "{:.4f}/{:.4f} -> {:.4f}/{:.4f} px; {} host syncs (bound {}), {} CG iterations "
+        "(k = {}; per LM step {}), {} masked, {} matvecs, {} schur_wz launches, {} graph "
+        "replays, capture {:.3f} s".format(
+            label, "graphs" if graphs else "eager", rec["iterations"], wall, rec["lm_it_per_s"],
+            rec["reproj_before_mean"], rec["reproj_before_median"], rec["reproj_after_mean"],
+            rec["reproj_after_median"], rec["host_syncs"], bound, rec["cg_iterations"], k,
+            info["cg_steps"], rec["cg_masked"], rec["matvecs"], launches,
+            rec["graph_replays"], rec["capture_s"]))
     return cam, pts, e1, rec
+
+
+def graphs_against_eager(label, solver, ls, main, profile_ls=None):
+    """After the main path's solve `main` = (cam, pts, record), which
+    captured the solver's graphs: the same solve replayed (no capture), then
+    run eagerly (graphs=False, the same phases without graphs). The three
+    must give the same bits of cam and pts; the replayed and the eager solve
+    are profiled (profile_ls: a shorter solve where given), each against its
+    own wall per LM iteration."""
+    import torch
+
+    cam, pts, first = main
+    cam_r, pts_r, _, replay = solve_round(solver, ls, label + ", again")
+    cam_e, pts_e, _, eager = solve_round(solver, ls, label, graphs=False)
+    same = all(bool(torch.equal(a, b)) for a, b in ((cam, cam_e), (pts, pts_e), (cam_r, cam_e),
+                                                     (pts_r, pts_e)))
+    log("{}: graphs against eager: walls {:.4f} s (first, capture {:.3f} s of it) / {:.4f} s "
+        "(again) / {:.4f} s (eager), LM it/s {:.2f} / {:.2f}; host syncs {} / {}; cam and pts "
+        "bit-identical {}".format(label, first["wall_s"], first["capture_s"], replay["wall_s"],
+                                  eager["wall_s"], replay["lm_it_per_s"], eager["lm_it_per_s"],
+                                  replay["host_syncs"], eager["host_syncs"], same))
+    assert same, label + ": the captured solve's bits differ from the eager solve's"
+    assert first["capture_s"] > 0 and replay["capture_s"] == 0, (first, replay)
+    for key in ("iterations", "cg_steps", "cg_iterations"):
+        assert first[key] == replay[key] == eager[key], (label, key, replay[key], eager[key])
+    prof_ls = ls if profile_ls is None else profile_ls
+    prof = {mode: profile_window("{} {}".format(label, mode), solver, prof_ls,
+                                 r["wall_s"] / r["iterations"], graphs=mode == "graphs")
+            for mode, r in (("graphs", replay), ("eager", eager))}
+    return {"first": first, "again": replay, "eager": eager, "bit_identical": same,
+            "profile": prof}
 
 
 def device_busy(label, prof):
@@ -431,11 +495,11 @@ def device_busy(label, prof):
     return busy_us, by_name, kern
 
 
-def profile_window(label, solver, ls, wall_per_it):
+def profile_window(label, solver, ls, wall_per_it, graphs=True):
     """Re-run a solve under torch.profiler: device busy time (the union of
     the kernels' spans), kernels per LM iteration, the operator kernels'
     share of device time, and the device's idle share against wall_per_it,
-    the unprofiled wall time per LM iteration of the main-path run."""
+    the unprofiled wall time per LM iteration of the same solve."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -443,7 +507,7 @@ def profile_window(label, solver, ls, wall_per_it):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        *_, info = solver.solve(ls)
+        *_, info = solver.solve(ls, graphs=graphs)
         torch.cuda.synchronize()
     busy_us, by_name, kern = device_busy(label, prof)
     total_us = sum(by_name.values())
@@ -526,8 +590,9 @@ def slice_a(dev, kernels):
     assert recall >= 0.9, recall
     assert l2["reproj_after_mean"] < 0.15, l2["reproj_after_mean"]
     log("slice A: BA stage {:.3f} s; kernel launches {}".format(stage_s, launches))
-    prof = profile_window("slice A L2", solver2, None, l2["wall_s"] / l2["iterations"])
-    return {"profile": prof, "soft_l1": soft, "l2": l2, "flagged": n_flagged, "removed": p.n_obs - p2.n_obs,
+    graphs = graphs_against_eager("slice A L2", solver2, None, (cam, pts, l2))
+    return {"profile": graphs["profile"]["graphs"], "graphs": graphs, "soft_l1": soft, "l2": l2,
+            "flagged": n_flagged, "removed": p.n_obs - p2.n_obs,
             "moved": len(seeded), "moved_removed_share": recall, "outlier_s": rm_s,
             "stage_s": stage_s, "launches": launches}
 
@@ -550,14 +615,16 @@ def slice_b(dev, kernels):
 
     for k in kernels["counters"]:
         k.launches = 0
-    _, _, _, l2 = solve_round(solver, {"max_iter": SLICE_B_MAX_ITER}, "slice B L2")
+    ls = {"max_iter": SLICE_B_MAX_ITER}
+    cam, pts, _, l2 = solve_round(solver, ls, "slice B L2")
     launches = {k.__name__: k.launches for k in kernels["counters"]}
     assert all(n > 0 for n in launches.values()), launches
     assert l2["reproj_after_mean"] <= SLICE_B_MAX_REPROJ, l2["reproj_after_mean"]
     log("slice B: max_iter {} (not cut); kernel launches {}".format(SLICE_B_MAX_ITER, launches))
-    prof = profile_window("slice B L2, first 5 LM iterations", solver, {"max_iter": 5},
-                          l2["wall_s"] / l2["iterations"])
-    return {"profile": prof, "l2": l2, "launches": launches}
+    graphs = graphs_against_eager("slice B L2", solver, ls, (cam, pts, l2),
+                                  profile_ls={"max_iter": 5})
+    return {"profile": graphs["profile"]["graphs"], "graphs": graphs, "l2": l2,
+            "launches": launches}
 
 
 def small_reference(dev):
@@ -645,6 +712,19 @@ def slice_j(dev, counters):
     assert gate == "off" and B == len(tr["keypoints"]) * (len(tr["keypoints"]) - 1) // 2, (gate, B)
     tr["i8_largest_chunk"] = {"gate": gate, "B": B, "n1": n1, "n2": n2, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    # the bench's ba problem on a solver of its own: the captured solve, then
+    # the eager one
+    from sat_bundleadjust_tpu_torch.ba.solver import BASolver
+    from sat_bundleadjust_tpu_torch.utils.demo import make_scene_arrays, scene_to_baparams
+
+    n_cam, n_pts, n_obs = (SLICE_J_DEFAULTS[k] for k in ("n_cam", "n_pts", "n_obs"))
+    scene = make_scene_arrays(n_cam=n_cam, n_pts=n_pts, obs_per_pt=n_obs // n_pts,
+                              rot_scale=2e-5, noise_px=0.1, seed=0, device=dev)
+    solver = BASolver(scene_to_baparams(scene, noise_pts=1.0), schur_mode="cg", device=dev)
+    ls = {"max_iter": 30}
+    cam, pts, _, first = solve_round(solver, ls, "slice J ba")
+    ba["graphs"] = graphs_against_eager("slice J ba", solver, ls, (cam, pts, first))
 
     repo = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if not k.startswith("SATBA_BENCH_")}
@@ -834,6 +914,33 @@ def nn2_bound(mi, mj, desc_bytes, peak_ops):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), ops, nbytes
 
 
+def excess_over_exact_minimum(res, d_i, d_j, li, hj, vi, vj, thr):
+    """The largest, over the rows with a match, of the exact distance
+    (float64, from the float32 descriptors) to the column in idx minus the
+    exact minimum over the row's valid columns that pass the gate (the plain
+    version's float32 gate, in its order), pair by pair; and the rows."""
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
+
+    worst, rows = 0.0, 0
+    for b in range(d_i.shape[0]):
+        di, dj = d_i[b].double(), d_j[b].double()
+        exact = (di * di).sum(1)[:, None] + (dj * dj).sum(1)[None, :] - 2.0 * (di @ dj.T)
+        l, h = li[b], hj[b]
+        num = (l[:, 0:1] * h[None, :, 0] + l[:, 1:2] * h[None, :, 1]) + l[:, 2:3] * h[None, :, 2]
+        denom = l[:, 0:1] * l[:, 0:1] + l[:, 1:2] * l[:, 1:2]
+        ok = (num * num <= (thr[b] * thr[b]) * denom) & (vi[b][:, None] > 0) & (vj[b][None, :] > 0)
+        best = torch.where(ok, exact, torch.full_like(exact, float("inf"))).min(1).values
+        at = exact.gather(1, res[b, 2].long()[:, None])[:, 0]
+        ex = (at - best)[res[b, 0] < nm.BIG]
+        if ex.numel():
+            worst = max(worst, float(ex.max()))
+            rows += ex.numel()
+        del exact, num, ok
+    return worst, rows
+
+
 def check_nn2(ft, images, dev):
     """The three 2-NN entry points against their plain versions at the
     operands of slice C's largest staged chunk."""
@@ -895,10 +1002,15 @@ def check_nn2(ft, images, dev):
         return float(e.mean()), float(e.abs().max())
 
     bias = {"kernel": d1_error_to_exact(fn), "plain": d1_error_to_exact(fn_plain)}
-    # the tensor cores truncate where they add: a mean bias, bounded as in
+    # the tensor cores truncate where they add: the kernel adds each k-step's
+    # sum round-to-nearest, bounded as in
     # tests/test_torch_cuda.py::test_nn2_f32_kernel_bias_against_exact_distances
     eps_S = torch.finfo(torch.float32).eps * S
-    assert abs(bias["kernel"][0]) <= 4 * eps_S and bias["kernel"][1] <= tol, (bias, eps_S)
+    assert abs(bias["kernel"][0]) <= 0.5 * eps_S and bias["kernel"][1] <= tol, (bias, eps_S)
+    # every row with a match within 2 tol of its exact nearest valid, gated
+    # column
+    excess, excess_rows = excess_over_exact_minimum(fn, din, djn, li, hj, mi, mj, thr)
+    assert excess <= 2 * tol, (excess, tol)
     n_valid = int(mi.sum())
     n_found = int((a[:, 0] < nm.BIG).sum())
     log("2-NN at the largest of slice C's {} staged chunks: B={} n1={} n2={} ({} valid rows, "
@@ -909,8 +1021,12 @@ def check_nn2(ft, images, dev):
         "S = {} column splits bit-identical (integer and non-integer descriptors)".format(
             n_chunks, B, n1, n2, n_valid, n_found, err_f, tol, S, argmin_diff, S_single))
     log("f32 on non-integer descriptors, d1 minus the exact distance to its column: kernel "
-        "mean {:.4g} max|.| {:.4g}, plain mean {:.4g} max|.| {:.4g} (eps * S {:.4g}; bound on "
-        "the kernel's mean 4 eps * S)".format(*bias["kernel"], *bias["plain"], eps_S))
+        "mean {:.4g} ({:.3f} eps * S) max|.| {:.4g}, plain mean {:.4g} max|.| {:.4g} (eps * S "
+        "{:.4g}; bound on the kernel's mean 0.5 eps * S; PR 7's kernel, main products in two "
+        "tensor-core chains: mean +0.1795, 2.8 eps * S); exact distance to the kernel's column "
+        "over the exact minimum of the valid, gated columns: max {:.4g} on {} rows (bound "
+        "2 tol = {:.4g})".format(bias["kernel"][0], bias["kernel"][0] / eps_S, bias["kernel"][1],
+                                 *bias["plain"], eps_S, excess, excess_rows, 2 * tol))
 
     # a yardstick only (the port never calls it): cuBLAS's full-f32 batched
     # product of the cross term alone, TF32 off as the port pins it
@@ -921,7 +1037,8 @@ def check_nn2(ft, images, dev):
     log("yardstick: torch.bmm of the f32 cross term alone at B={} n1={} n2={} (TF32 off): "
         "{:.4f} ms".format(B, n1, n2, bmm_ms))
 
-    out = {"bmm_cross_f32_ms": bmm_ms, "single_splits": S_single, "d1_bias": bias}
+    out = {"bmm_cross_f32_ms": bmm_ms, "single_splits": S_single, "d1_bias": bias,
+           "eps_S": eps_S, "excess_over_exact_min": excess, "excess_rows": excess_rows}
     plain_rounds = 3
     cases = (
         ("nn2_batched_i8", lambda: nm.nn2_batched_i8(di, dj, li, hj, mi, mj, thr),
@@ -947,6 +1064,9 @@ def check_nn2(ft, images, dev):
             floor_ms = 3 * ops / peak * 1e3
             floor = ", 3x floor of the TF32 split {:.4f} ms ({:.1%} of it)".format(
                 floor_ms, floor_ms / ms)
+        if name in NN2_F32_BEFORE_MS:
+            floor += "; before the rounding repair {:.4f} ms (PR 10, another call)".format(
+                NN2_F32_BEFORE_MS[name])
         log("{}: kernel {:.4f} ms ({:.1f} TOP/s, {:.1%} of the bound), plain {:.4f} ms, bound "
             "{:.4f} ms ({}; {:.3g} ops, {:.1f} MB){}".format(
                 name, ms, ops / ms / 1e9, bound_ms / ms, plain_ms, bound_ms, bound_by, ops,
@@ -1688,8 +1808,9 @@ def matrix_solves(tag, cam_model, size, dev, counters, kernels):
     ls = {"max_iter": SLICE_F_MAX_ITER}
     for k in counters:
         k.launches = 0
-    cam, _, e1, rec = solve_round(solver, ls, "slice F {} L2, kernel".format(tag))
+    cam, pts, e1, rec = solve_round(solver, ls, "slice F {} L2, kernel".format(tag))
     launches = {k.__name__: k.launches for k in counters}
+    graphs = graphs_against_eager("slice F {} L2".format(tag), solver, ls, (cam, pts, rec))
     # the same solve with the plain operator: the solver's config with
     # matvec "plain"
     t0 = time.time()
@@ -1713,7 +1834,8 @@ def matrix_solves(tag, cam_model, size, dev, counters, kernels):
     assert rec["reproj_after_mean"] < SLICE_F_REPROJ_AFTER_MAX, rec["reproj_after_mean"]
     assert gap <= 1e-3, gap
     assert spread <= 1e-9, spread
-    return {"P": p.n_params, "kernel": rec, "plain": {"iterations": info_p["iterations"],
+    return {"P": p.n_params, "kernel": rec, "graphs": graphs,
+            "plain": {"iterations": info_p["iterations"],
             "wall_s": plain_s, "reproj_after_mean": float(np.mean(e1_p))},
             "gap_px": gap, "k_spread": spread, "launches": launches}
 

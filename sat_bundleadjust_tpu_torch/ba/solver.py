@@ -148,9 +148,11 @@ def build_problem(p, device, schur_mode=None):
 
 class BASolver:
     """Solver for one BAParams problem structure on one device: builds the
-    closures and the LMProblem once, for every round solved on it.
-    `last_info` holds the counters of the last solve (iterations, host
-    syncs, CG iterations, matvecs, wall time)."""
+    closures, the LMProblem and the LM driver (ops/lm.build_solve, whose
+    CUDA graphs it keeps) once, for every round solved on it. `last_info`
+    holds the counters of the last solve (iterations, host syncs, CG
+    iterations, masked ones, matvecs, graph replays, capture and wall
+    time)."""
 
     def __init__(self, p, schur_mode=None, jac_dtype=None, device=None):
         self.p = p
@@ -158,6 +160,16 @@ class BASolver:
         self.residual_fn, self.jac_fn = make_fns(
             p, self.device, jac_dtype=torch.float32 if jac_dtype is None else jac_dtype)
         self.prob, self.mode = build_problem(p, self.device, schur_mode)
+        self._drivers = {}
+
+    def driver(self, cfg, graphs=True):
+        """build_solve's run for cfg, made once per configuration that the
+        graphs depend on (loss, f_scale and max_iter are run's arguments)."""
+        key = (cfg._replace(loss="linear", f_scale=1.0, max_iter=0), graphs)
+        if key not in self._drivers:
+            self._drivers[key] = lm_ops.build_solve(self.residual_fn, self.jac_fn, self.p.n_cam,
+                                                    self.p.n_pts, self.prob, cfg, graphs=graphs)
+        return self._drivers[key]
 
     def config(self, ls_params=None):
         """The LMConfig of a solve. COMMON_K ties the trailing n_params_k
@@ -176,14 +188,16 @@ class BASolver:
             cg_coarse_k=lm_ops.default_coarse_k(self.p.n_cam),
         )
 
-    def solve(self, ls_params=None, verbose=False):
+    def solve(self, ls_params=None, verbose=False, graphs=True):
         """One LM solve from the problem's initial state. Returns
-        ((cam0, pts0), (cam, pts), err_init, err_ba, info)."""
+        ((cam0, pts0), (cam, pts), err_init, err_ba, info). graphs=False
+        runs the card's solve eagerly, for checks of its graphs only."""
         cfg = self.config(ls_params)
         cam0 = torch.as_tensor(self.p.opt_block(), dtype=torch.float64, device=self.device)
         pts0 = torch.as_tensor(self.p.pts3d, dtype=torch.float64, device=self.device)
         t0 = time.time()
-        cam, pts, info = lm_ops.solve(self.residual_fn, self.jac_fn, cam0, pts0, self.prob, cfg)
+        cam, pts, info = self.driver(cfg, graphs)(cam0, pts0, cfg.max_iter, cfg.loss,
+                                                  cfg.f_scale)
         err_init = info.pop("err0")
         err_ba = info.pop("err_fin")
         info["wall_time"] = time.time() - t0

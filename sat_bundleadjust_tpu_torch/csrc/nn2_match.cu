@@ -97,29 +97,35 @@
 //   * Cross term: wgmma m64n32k8 TF32 with f32 accumulation (mma.sync
 //     m16n8k8 issues at about half of wgmma's rate), and a split a = a_hi +
 //     a_lo with a_hi = tf32(a), a_lo = tf32(a - a_hi) (cvt.rna): a.b ~
-//     a_hi.b_hi + (a_hi.b_lo + a_lo.b_hi). The main products of k-steps 0-7
-//     accumulate in one register set, those of 8-15 in another, the
-//     corrections in a third, and cross = (m0 + m1) + cc in f32. The tensor
-//     cores truncate toward zero where they add, so positive partial sums
-//     come out low and distances high: a mean bias of about 1.5-3 eps * S
-//     (S below) that the plain version does not have (PERF.md); one chain of
-//     16 k-steps of main products biases them about three times as much.
-//     TF32 keeps 11 significant bits, so every integer up to 2047 is exact
-//     in it: on descriptor values in 0..255, a_hi = a, a_lo = 0, every
-//     product is an exact integer and every partial sum of 128 of them an
-//     integer below 2^24, exact in the f32 accumulator in whatever order
-//     the tensor cores add (and so never truncated). So integer descriptors give the same bits as the int8 kernel, the
-//     plain version and JAX. On other values the split drops a_lo.b_lo and
-//     the rounding of a_lo and b_lo (about 2^-22 |a||b| a product) and the
-//     tensor cores round their sums: distances stay within 16 ulp of
-//     S = max sq_i + max sq_j of the plain version, the bar of chip_smoke.py
-//     and tests/test_torch_cuda.py.
+//     a_hi.b_hi + (a_hi.b_lo + a_lo.b_hi). The tensor cores truncate toward
+//     zero where they add, so on positive descriptors a sum they carry comes
+//     out low and every distance high, by about half an ulp of the running
+//     sum at each add: main products summed in two chains of 8 k-steps gave
+//     d1 a mean bias of 1.3-2.8 eps * S (S below; PERF.md), which the plain
+//     version does not have. So each k-step's main products (a sum of 8) go
+//     into a fresh accumulator and are added to the row's f32 sum on the
+//     CUDA cores, round-to-nearest, in k order: the truncation then acts on
+//     sums of 8 products only, about 1/16 of the cross term each, and the
+//     adds are unbiased. Two accumulator sets take turns, so that the next
+//     k-step's products run while this one's are added. The corrections,
+//     2^-11 of the main products, keep one chain in the tensor cores, and
+//     cross = main + cc in f32. TF32 keeps 11 significant bits, so every
+//     integer up to 2047 is exact in it: on descriptor values in 0..255,
+//     a_hi = a, a_lo = 0, every product is an exact integer and every
+//     partial sum of 128 of them an integer below 2^24, exact in f32 in
+//     whatever order it is added (and so never truncated). So integer
+//     descriptors give the same bits as the int8 kernel, the plain version
+//     and JAX. On other values the split drops a_lo.b_lo and the rounding
+//     of a_lo and b_lo (about 2^-22 |a||b| a product) and the tensor cores
+//     truncate each k-step's sum: distances stay within 16 ulp of
+//     S = max sq_i + max sq_j of exact ones, and d1's mean error within
+//     half an ulp, the bars of chip_smoke.py and tests/test_torch_cuda.py.
 //   * A block of two warpgroups owns 128 rows of one pair; each warp keeps
 //     its 16 rows in registers as A fragments, hi and lo (128 registers a
 //     lane), for the whole column range; the columns' hi and lo come from
 //     shared memory, read by the tensor cores themselves. The k order is
 //     fixed by the shapes: k-step s takes elements 8s .. 8s + 7 in A and B,
-//     the chains above in that order, so a given (i, j) always gets the same
+//     the sums above in that order, so a given (i, j) always gets the same
 //     products in the same order, whatever the grid.
 //   * nn2_tf32_columns writes, once per call, each 32-column tile of a pair
 //     as one 33 KB block: the columns' hi and lo in the tensor cores'
@@ -524,8 +530,10 @@ __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// waits until at most N committed groups of this warpgroup's products run
+template <int N>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from touching an accumulator while a product runs
@@ -705,11 +713,13 @@ nn2_tf32_kernel(const float* __restrict__ di, const unsigned char* __restrict__ 
     thr[r] = d2[r];
   }
 
-  // Main products of k-steps 0-7 in m0, of 8-15 in m1, the corrections in cc:
-  // cross = (m0 + m1) + cc, in f32.
-  float m0[16], m1[16], cc[16];
+  // The main products of each k-step in a fresh accumulator (pa for even
+  // steps, pb for odd ones: the next step's products run while this one's
+  // are added), added with round-to-nearest f32 adds into msum in k order;
+  // the corrections in one chain, cc. cross = msum + cc.
+  float pa[16], pb[16], msum[16], cc[16];
 #pragma unroll
-  for (int k = 0; k < 16; ++k) m0[k] = m1[k] = cc[k] = 0.f;
+  for (int k = 0; k < 16; ++k) pa[k] = pb[k] = cc[k] = 0.f;
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int stage = tile % kFStages;
     mbar_wait(bars + 8 * stage, (tile / kFStages) & 1);
@@ -717,20 +727,29 @@ nn2_tf32_kernel(const float* __restrict__ di, const unsigned char* __restrict__ 
 
     unsigned char* st = smem + stage * kFTileBytes;
     const uint64_t dh = wg_desc(st), dl = wg_desc(st + kFHalf);
-    wg_hold(m0);
-    wg_hold(m1);
-    wg_hold(cc);
-    wg_fence();
+#pragma unroll
+    for (int k = 0; k < 16; ++k) msum[k] = 0.f;
 #pragma unroll
     for (int s = 0; s < 16; ++s) {
       const uint64_t o = (2 * s * kLBO) >> 4;  // k-step s: core matrices 2s and 2s + 1
-      wgmma_tf32(s < 8 ? m0 : m1, ahi[s], dh + o, s % 8 != 0);
+      float(&cur)[16] = (s & 1) ? pb : pa;
+      float(&prev)[16] = (s & 1) ? pa : pb;
+      wg_hold(cur);
+      wg_hold(cc);
+      wg_fence();
+      wgmma_tf32(cur, ahi[s], dh + o, 0);
       wgmma_tf32(cc, ahi[s], dl + o, s != 0);
       wgmma_tf32(cc, alo[s], dh + o, 1);
+      wg_commit();
+      if (s > 0) {
+        wg_wait<1>();  // k-step s - 1 is done; s runs on
+        wg_hold(prev);
+#pragma unroll
+        for (int k = 0; k < 16; ++k) msum[k] = __fadd_rn(msum[k], prev[k]);
+      }
     }
-    wg_commit();
-    // while the tensor cores run this tile: every block of the cluster is
-    // done with tile - 1, whose stage thread 0 refills with tile - 1 + kFStages
+    // while the tensor cores run the last k-step: every block of the cluster
+    // is done with tile - 1, whose stage thread 0 refills with tile - 1 + kFStages
     if (tile > 0) {
       cluster_wait();
       if (tid == 0 && tile - 1 + kFStages < n_tiles)
@@ -738,10 +757,11 @@ nn2_tf32_kernel(const float* __restrict__ di, const unsigned char* __restrict__ 
                    bars + 8 * ((tile - 1) % kFStages), (tile - 1) % kFStages, rank);
       __syncwarp();
     }
-    wg_wait();
-    wg_hold(m0);
-    wg_hold(m1);
+    wg_wait<0>();
+    wg_hold(pb);
     wg_hold(cc);
+#pragma unroll
+    for (int k = 0; k < 16; ++k) msum[k] = __fadd_rn(msum[k], pb[k]);
 
     // the quad's bound: prune dist >= Q (the second value of the quad's columns)
 #pragma unroll
@@ -762,8 +782,7 @@ nn2_tf32_kernel(const float* __restrict__ di, const unsigned char* __restrict__ 
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int r = k >> 1;
-        const float cross =
-            __fadd_rn(__fadd_rn(m0[4 * nb + k], m1[4 * nb + k]), cc[4 * nb + k]);
+        const float cross = __fadd_rn(msum[4 * nb + k], cc[4 * nb + k]);
         const float s = __fadd_rn(sq[r], sr[8 * nb + (k & 1)].x);
         dist[nb][k] = fmaxf(__fmaf_rn(-2.f, cross, s), 0.f);
         cand |= dist[nb][k] < thr[r];

@@ -514,3 +514,43 @@ extern "C" int schur_wz_run(const SchurArgs* a, const float* x, float* wz, void*
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// One operator application captured into a CUDA graph on a stream of its
+// own, which is then destroyed: nothing runs. out[0] = the graph's nodes,
+// out[1] = its edges, out[2] = the programmatic ones (the dependent launch
+// of schur_cameras kept as such in a graph). Returns the first CUDA error
+// (0 = success).
+extern "C" int schur_wz_graph_edges(const SchurArgs* a, const float* x, float* wz, int* out) {
+  cudaStream_t s;
+  cudaError_t e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaGraph_t g = nullptr;
+  e = cudaStreamBeginCapture(s, cudaStreamCaptureModeThreadLocal);
+  int err = e != cudaSuccess ? static_cast<int>(e) : schur_wz_run(a, x, wz, s);
+  if (e == cudaSuccess) {
+    const cudaError_t end = cudaStreamEndCapture(s, &g);
+    if (err == 0 && end != cudaSuccess) err = static_cast<int>(end);
+  }
+  size_t nodes = 0, edges = 0;
+  int programmatic = 0;
+  if (err == 0 && g != nullptr) {
+    e = cudaGraphGetNodes(g, nullptr, &nodes);
+    cudaGraphNode_t from[8], to[8];
+    cudaGraphEdgeData data[8];
+    edges = 8;
+#if CUDART_VERSION >= 13000
+    if (e == cudaSuccess) e = cudaGraphGetEdges(g, from, to, data, &edges);
+#else
+    if (e == cudaSuccess) e = cudaGraphGetEdges_v2(g, from, to, data, &edges);
+#endif
+    if (e != cudaSuccess) err = static_cast<int>(e);
+    for (size_t i = 0; i < edges && i < 8; ++i)
+      programmatic += data[i].type == cudaGraphDependencyTypeProgrammatic;
+  }
+  if (g != nullptr) cudaGraphDestroy(g);
+  cudaStreamDestroy(s);
+  out[0] = static_cast<int>(nodes);
+  out[1] = static_cast<int>(edges);
+  out[2] = programmatic;
+  return err;
+}

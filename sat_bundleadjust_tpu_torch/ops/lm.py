@@ -10,8 +10,14 @@ system with one of two backends:
     block-Jacobi preconditioner on the true Schur diagonal, an additive
     coarse level and a warm start from the previous step.
 
-The LM and CG loops are Python loops; each loop test reads one scalar from
-the device (a host sync), counted in the `stats` dict the caller passes.
+The CG runs in blocks of masked iterations (_CG.iterations): the host reads
+its stop once a block. build_solve keeps each LM iteration's phases as CUDA
+graphs on the card (the JAX package's while_loops as graph replays): one
+launch and one host read of the device a block of CG_BLOCK iterations.
+Where nothing is captured (the CPU, graphs=False, the distributed solve) a
+block is one iteration. The reads,
+iterations, operator applications and replays are counted in the `stats`
+dict the caller passes.
 
 Failed factorizations never raise: as in the JAX package, they produce
 non-finite values that the coarse-level guard drops or the step sanitizer
@@ -20,11 +26,13 @@ turns into a rejected step.
 
 import math
 import os
+import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from sat_bundleadjust_tpu_torch.ops import launches
 from sat_bundleadjust_tpu_torch.ops import smallmat as sm
 from sat_bundleadjust_tpu_torch.ops.robust import loss_cost, loss_scale
 from sat_bundleadjust_tpu_torch.ops.schur_matvec import SchurOperator, schur_wz_plain
@@ -96,9 +104,13 @@ def default_coarse_k(n_cam):
 
 
 def new_stats():
-    """Counters a solve accumulates: host syncs, CG iterations, operator
-    applications (matvecs)."""
-    return {"host_syncs": 0, "cg_iterations": 0, "matvecs": 0}
+    """Counters a solve accumulates: host syncs (reads of the device), active
+    CG iterations (and each LM step's, cg_steps), masked ones (cg_masked:
+    run, their results discarded), operator applications executed
+    (matvecs, masked ones included), CUDA graph replays and the seconds
+    spent capturing graphs (capture_s)."""
+    return {"host_syncs": 0, "cg_iterations": 0, "cg_masked": 0, "cg_steps": [], "matvecs": 0,
+            "graph_replays": 0, "capture_s": 0.0}
 
 
 # ----------------------------------------------------------------------
@@ -348,10 +360,25 @@ def tied_tail_projector(m, P, tie_tail):
     return proj
 
 
-def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
-                    cg_rtol=1e-2, tie_tail=0, x0=None, coarse=True, coarse_k=1,
-                    matvec_impl="auto", stats=None, reduce=None):
-    """Matrix-free preconditioned CG on the Schur complement, in float32.
+# CG iterations a block where the block is a CUDA graph: the host reads the
+# CG's stop once a block
+CG_BLOCK = 8
+
+
+def cg_block(cg_iters, captured):
+    """Iterations per CG block: CG_BLOCK, or cg_iters when that is smaller,
+    where the block is a captured CUDA graph (a read there drains the card
+    after each replay); 1 where nothing is captured (the CPU, graphs=False,
+    the distributed solve), since a read there saves nothing and a masked
+    iteration costs its launches."""
+    return max(1, min(CG_BLOCK, int(cg_iters))) if captured else 1
+
+
+class _CG:
+    """One matrix-free preconditioned CG solve on the Schur complement, in
+    float32: its operator, preconditioner and state x, r, p, rz and the
+    int32 count of iterations `it`, device tensors that `iterations`
+    advances in place.
 
     matvec(x) = U x - W V^-1 W^T x. LM only needs a descent direction, so
     the budget is truncated (cg_iters) with forcing term cg_rtol. With
@@ -362,119 +389,168 @@ def _cg_schur_solve(U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters,
     parallel/dist_solver.py), where the JAX package takes its psum: each
     shard applies its own U_d and wz and the operator result is summed, and
     so are the block-Jacobi diagonal and the coarse E. b arrives summed.
-    Every value the loop tests is then the same on every rank."""
-    if matvec_impl not in MATVECS:
-        raise ValueError("matvec must be one of {}, got {!r}".format(MATVECS, matvec_impl))
-    stats = new_stats() if stats is None else stats
-    out_dtype = b.dtype
-    f32 = torch.float32
-    scale = torch.clamp(b.abs().max(), min=1e-30)
-    U_d = (U_d / scale).to(f32)
-    W = (W / torch.sqrt(scale)).to(f32)
-    Vinv = Vinv.to(f32)
-    b = (b / scale).to(f32)
-    P = U_d.shape[-1]
-    n_pts = Vinv.shape[0]
-    dev = U_d.device
-    m = cam_opt_mask.to(f32)[:, None]
+    Every value the loop tests is then the same on every rank.
 
-    dual_layout = prob.cam_ind_pt is not None and prob.pts_ind_cam is not None
-    if dual_layout:
-        W_pt, W_cm = fold_layouts(W, Vinv, prob)
-        if matvec_impl == "auto":
-            # bound once per LM step: the CG's calls launch the kernels only
-            op = SchurOperator(W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
+    Nothing here reads the device from the host: the set-up and the
+    iterations can be captured in a CUDA graph (build_solve)."""
 
-            def wz_of(x):
-                return op(x.contiguous())
+    def __init__(self, U_d, W, Vinv, b, prob, n_cam, cam_opt_mask, cg_iters, cg_rtol=1e-2,
+                 tie_tail=0, x0=None, coarse=True, coarse_k=1, matvec_impl="auto", stats=None,
+                 reduce=None):
+        if matvec_impl not in MATVECS:
+            raise ValueError("matvec must be one of {}, got {!r}".format(MATVECS, matvec_impl))
+        stats = new_stats() if stats is None else stats
+        self.out_dtype = b.dtype
+        self.cg_iters = int(cg_iters)
+        f32 = torch.float32
+        scale = torch.clamp(b.abs().max(), min=1e-30)
+        U_d = (U_d / scale).to(f32)
+        W = (W / torch.sqrt(scale)).to(f32)
+        Vinv = Vinv.to(f32)
+        b = (b / scale).to(f32)
+        P = U_d.shape[-1]
+        n_pts = Vinv.shape[0]
+        dev = U_d.device
+        m = cam_opt_mask.to(f32)[:, None]
+
+        dual_layout = prob.cam_ind_pt is not None and prob.pts_ind_cam is not None
+        if dual_layout:
+            W_pt, W_cm = fold_layouts(W, Vinv, prob)
+            if matvec_impl == "auto":
+                # bound once per LM step: the CG's calls launch the kernels only
+                op = SchurOperator(W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
+
+                def wz_of(x):
+                    return op(x.contiguous())
+            else:
+                op = {"aos": schur_wz_aos, "plain": schur_wz_plain}[matvec_impl]
+
+                def wz_of(x):
+                    return op(x.contiguous(), W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
         else:
-            op = {"aos": schur_wz_aos, "plain": schur_wz_plain}[matvec_impl]
+            pts_ind, cam_ind = prob.pts_ind, prob.cam_ind
 
             def wz_of(x):
-                return op(x.contiguous(), W_pt, prob.cam_ind_pt, W_cm, prob.pts_ind_cam)
-    else:
-        pts_ind, cam_ind = prob.pts_ind, prob.cam_ind
+                wtx = _seg_sum_pt(sm.mtv(W, x[cam_ind]), prob, n_pts)
+                return _seg_sum_cam(sm.mv(W, sm.mv(Vinv, wtx)[pts_ind]), prob, n_cam)
 
-        def wz_of(x):
-            wtx = _seg_sum_pt(sm.mtv(W, x[cam_ind]), prob, n_pts)
-            return _seg_sum_cam(sm.mv(W, sm.mv(Vinv, wtx)[pts_ind]), prob, n_cam)
+        def matvec(x):
+            stats["matvecs"] += 1
+            out = sm.mv(U_d, x) - wz_of(x)
+            if reduce is not None:
+                out = reduce(out)
+            return out * m + x * (1.0 - m)
 
-    def matvec(x):
-        stats["matvecs"] += 1
-        out = sm.mv(U_d, x) - wz_of(x)
+        # block-Jacobi preconditioner on the true Schur diagonal
+        # S_cc = U_cc - sum_{k in obs(c)} Y_k W_k^T
+        if dual_layout:
+            S_diag = U_d - torch.sum(sm.mbt(W_cm, W_cm), dim=1)
+        else:
+            Y = sm.mm(W, Vinv[prob.pts_ind])
+            S_diag = U_d - _seg_sum_cam(sm.mbt(Y, W), prob, n_cam)
         if reduce is not None:
-            out = reduce(out)
-        return out * m + x * (1.0 - m)
+            S_diag = reduce(S_diag)
+        eye_p = torch.eye(P, dtype=f32, device=dev)
+        prec, info = torch.linalg.inv_ex(S_diag + eye_p * 1e-12)
+        prec = torch.where((info == 0)[:, None, None], prec, torch.full_like(prec, math.nan))
 
-    # block-Jacobi preconditioner on the true Schur diagonal
-    # S_cc = U_cc - sum_{k in obs(c)} Y_k W_k^T
-    if dual_layout:
-        S_diag = U_d - torch.sum(sm.mbt(W_cm, W_cm), dim=1)
-    else:
-        Y = sm.mm(W, Vinv[prob.pts_ind])
-        S_diag = U_d - _seg_sum_cam(sm.mbt(Y, W), prob, n_cam)
-    if reduce is not None:
-        S_diag = reduce(S_diag)
-    eye_p = torch.eye(P, dtype=f32, device=dev)
-    prec, info = torch.linalg.inv_ex(S_diag + eye_p * 1e-12)
-    prec = torch.where((info == 0)[:, None, None], prec, torch.full_like(prec, math.nan))
-
-    if coarse:
-        G = max(1, int(coarse_k))
-        E, Zg = coarse_schur_E(U_d, W, Vinv, prob, m, n_pts,
-                               W_pt=W_pt if dual_layout else None,
-                               n_clusters=G)
-        if reduce is not None:
-            E = reduce(E)
-        Einv = coarse_inverse(E.reshape(G * P, G * P))
-
-    proj = tied_tail_projector(m, P, tie_tail)
-
-    def apply_prec(v):
-        pv = proj(v)
-        out = sm.mv(prec, pv)
         if coarse:
-            vc = (Zg.T @ pv).reshape(-1)
-            out = out + Zg @ (Einv @ vc).reshape(G, P)
-        return proj(out * m + v * (1.0 - m))
+            G = max(1, int(coarse_k))
+            E, Zg = coarse_schur_E(U_d, W, Vinv, prob, m, n_pts,
+                                   W_pt=W_pt if dual_layout else None,
+                                   n_clusters=G)
+            if reduce is not None:
+                E = reduce(E)
+            Einv = coarse_inverse(E.reshape(G * P, G * P))
 
-    b = proj(b * m)
-    rr0 = torch.sum(b * b)
-    if x0 is None:
-        x = torch.zeros_like(b)
-        r = b
-    else:
-        # warm start from the previous LM step, unless it is a worse start
-        # than zero
-        x0 = proj(x0.to(f32) * m)
-        r_w = b - proj(matvec(x0))
-        use_warm = torch.sum(r_w * r_w) < rr0
-        x = torch.where(use_warm, x0, torch.zeros_like(b))
-        r = torch.where(use_warm, r_w, b)
-    z = apply_prec(r)
-    p = z
-    rz = torch.sum(r * z)
-    tol = (cg_rtol * cg_rtol) * rr0
-    one = torch.ones((), dtype=f32, device=dev)
+        proj = tied_tail_projector(m, P, tie_tail)
 
-    it = 0
-    while it < cg_iters:
-        stats["host_syncs"] += 1
-        if not bool(torch.sum(r * r) > tol):
-            break
-        Ap = proj(matvec(p))
-        denom = torch.sum(p * Ap)
-        alpha = rz / torch.where(denom.abs() < 1e-30, one, denom)
-        x = x + alpha * p
-        r = r - alpha * Ap
+        def apply_prec(v):
+            pv = proj(v)
+            out = sm.mv(prec, pv)
+            if coarse:
+                vc = (Zg.T @ pv).reshape(-1)
+                out = out + Zg @ (Einv @ vc).reshape(G, P)
+            return proj(out * m + v * (1.0 - m))
+
+        b = proj(b * m)
+        rr0 = torch.sum(b * b)
+        if x0 is None:
+            x = torch.zeros_like(b)
+            r = b
+        else:
+            # warm start from the previous LM step, unless it is a worse start
+            # than zero
+            x0 = proj(x0.to(f32) * m)
+            r_w = b - proj(matvec(x0))
+            use_warm = torch.sum(r_w * r_w) < rr0
+            x = torch.where(use_warm, x0, torch.zeros_like(b))
+            r = torch.where(use_warm, r_w, b)
         z = apply_prec(r)
-        rz_new = torch.sum(r * z)
-        beta = rz_new / torch.where(rz.abs() < 1e-30, one, rz)
-        p = z + beta * p
-        rz = rz_new
-        it += 1
+        self.matvec, self.apply_prec, self.proj = matvec, apply_prec, proj
+        self.tol = (cg_rtol * cg_rtol) * rr0
+        self.one = torch.ones((), dtype=f32, device=dev)
+        # the state, in tensors of its own (the iterations write them in place)
+        self.x, self.r, self.p = x.clone(), r.clone(), z.clone()
+        self.rz = torch.sum(r * z)
+        self.it = torch.zeros((), dtype=torch.int32, device=dev)
+        # what the host reads: (it, active)
+        self.status = torch.stack([self.it, self._active(self.r, self.it)])
+
+    def _active(self, r, it):
+        """JAX's loop condition, as an int32 0 or 1."""
+        return ((torch.sum(r * r) > self.tol) & (it < self.cg_iters)).to(torch.int32)
+
+    def iterations(self, k):
+        """k CG iterations, each committed only where it is active (the
+        residual above the forcing term and fewer than cg_iters done): a
+        masked iteration leaves the state bit for bit as it was, through
+        torch.where, so that a NaN or inf of its arithmetic never leaks.
+        Then the status (it, active) for the host."""
+        x, r, p, rz, it = self.x, self.r, self.p, self.rz, self.it
+        one = self.one
+        for _ in range(k):
+            active = self._active(r, it) > 0
+            Ap = self.proj(self.matvec(p))
+            denom = torch.sum(p * Ap)
+            alpha = rz / torch.where(denom.abs() < 1e-30, one, denom)
+            x_new = x + alpha * p
+            r_new = r - alpha * Ap
+            z = self.apply_prec(r_new)
+            rz_new = torch.sum(r_new * z)
+            beta = rz_new / torch.where(rz.abs() < 1e-30, one, rz)
+            p_new = z + beta * p
+            x = torch.where(active, x_new, x)
+            r = torch.where(active, r_new, r)
+            p = torch.where(active, p_new, p)
+            rz = torch.where(active, rz_new, rz)
+            it = it + active.to(torch.int32)
+        for dst, src in ((self.x, x), (self.r, r), (self.p, p), (self.rz, rz), (self.it, it)):
+            dst.copy_(src)
+        self.status.copy_(torch.stack([it, self._active(r, it)]))
+
+    def solution(self):
+        return self.x.to(self.out_dtype)
+
+
+def run_cg(block, status, k, stats, read_first=False):
+    """Runs block(), k masked CG iterations, until the host reads the CG's
+    stop from status (it, active): after each block, and before the first
+    one too when read_first. Counts the reads, the active iterations and the
+    masked ones into stats; returns the active iterations."""
+    ran, active = 0, True
+    if read_first:
+        stats["host_syncs"] += 1
+        it, active = status.tolist()
+    while active:
+        block()
+        ran += k
+        stats["host_syncs"] += 1
+        it, active = status.tolist()
     stats["cg_iterations"] += it
-    return x.to(out_dtype)
+    stats["cg_masked"] += ran - it
+    stats["cg_steps"].append(it)
+    return it
 
 
 def coarse_inverse(E):
@@ -535,16 +611,10 @@ def default_cg_iters(n_cam):
     return max(15, min(60, n_cam // 2))
 
 
-def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=None,
-            x0_cam=None, stats=None, reduce=None):
-    """One damped Schur-complement solve. Returns (dcam (M, P), dpt (N, 3)).
-
-    x0_cam: CG warm start (the previous step's dcam); ignored by "dense".
-    reduce: the sum over the shards of a distributed solve (see
-    _cg_schur_solve), taken where the JAX package takes its psum: g_cam,
-    the right-hand side and, inside the CG, the operator results, the
-    block-Jacobi diagonal and the coarse E. The normal blocks stay local and
-    are damped per shard; a reduced solve is always the CG."""
+def _schur_system(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=None,
+                  reduce=None):
+    """The damped normal equations of one LM step with the points
+    eliminated: (U_d, W, Vinv, b, g_pt), b the reduced right-hand side."""
     r, g_cam, g_pt, U, V, W = _normal_blocks(
         r, J_cam, J_pt, prob, n_cam, n_pts, cfg, loss=loss, f_scale=f_scale
     )
@@ -564,22 +634,31 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
         # the W V^-1 g_pt part of b is the shard's own; -g_cam was summed
         # already, so it is added back before the sum and taken off after
         b = reduce(b + g_cam) - g_cam
-    cmask = prob.cam_opt_mask.to(dt)
-    if cfg.schur_mode == "dense" and not cfg.tie_tail and reduce is None:
-        solve = _dense_mxu_schur_solve if prob.obs_at is not None else _dense_schur_solve
-        dcam = solve(U_d, W, Vinv, b, prob, n_cam, cmask)
-    else:
-        dcam = _cg_schur_solve(
-            U_d, W, Vinv, b, prob, n_cam, cmask,
-            cfg.cg_iters or default_cg_iters(n_cam),
-            cg_rtol=cfg.cg_rtol, tie_tail=cfg.tie_tail, x0=x0_cam, coarse=cfg.cg_coarse,
-            coarse_k=cfg.cg_coarse_k, matvec_impl=cfg.matvec, stats=stats, reduce=reduce,
-        )
+    return U_d, W, Vinv, b, g_pt
 
-    # back-substitute tie points: dp = -V^-1 (g_pt + W^T dcam)
+
+def _dense_solve(system, prob, n_cam):
+    U_d, W, Vinv, b, _ = system
+    solve = _dense_mxu_schur_solve if prob.obs_at is not None else _dense_schur_solve
+    return solve(U_d, W, Vinv, b, prob, n_cam, prob.cam_opt_mask.to(U_d.dtype))
+
+
+def _cg_of(system, prob, n_cam, cfg, x0_cam, stats, reduce=None):
+    U_d, W, Vinv, b, _ = system
+    return _CG(U_d, W, Vinv, b, prob, n_cam, prob.cam_opt_mask.to(U_d.dtype),
+               cfg.cg_iters or default_cg_iters(n_cam), cg_rtol=cfg.cg_rtol,
+               tie_tail=cfg.tie_tail, x0=x0_cam, coarse=cfg.cg_coarse,
+               coarse_k=cfg.cg_coarse_k, matvec_impl=cfg.matvec, stats=stats, reduce=reduce)
+
+
+def _back_substitute(dcam, system, prob, n_pts, reduce=None):
+    """(dcam, dpt) of a camera step: dp = -V^-1 (g_pt + W^T dcam), both
+    masked, and both zero where either is not finite."""
+    _, W, Vinv, _, g_pt = system
+    dt = W.dtype
     wtdc = _seg_sum_pt(sm.mtv(W, dcam[prob.cam_ind]), prob, n_pts)
-    dpt = -sm.mv(Vinv, g_pt + wtdc) * pmask[:, None]
-    dcam = dcam * cmask[:, None]
+    dpt = -sm.mv(Vinv, g_pt + wtdc) * prob.pts_opt_mask.to(dt)[:, None]
+    dcam = dcam * prob.cam_opt_mask.to(dt)[:, None]
     # a non-finite step (failed factorization, indefinite CG) becomes a zero
     # step, which the driver treats as a rejected iteration
     finite = torch.isfinite(dcam.sum()) & torch.isfinite(dpt.sum())
@@ -592,13 +671,270 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
     return dcam, dpt
 
 
-def build_solve(residual_fn, jac_fn, n_cam, n_pts, prob, cfg):
+def _dense_mode(cfg, reduce=None):
+    return cfg.schur_mode == "dense" and not cfg.tie_tail and reduce is None
+
+
+def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=None,
+            x0_cam=None, stats=None, reduce=None):
+    """One damped Schur-complement solve. Returns (dcam (M, P), dpt (N, 3)).
+
+    x0_cam: CG warm start (the previous step's dcam); ignored by "dense".
+    reduce: the sum over the shards of a distributed solve (see _CG), taken
+    where the JAX package takes its psum: g_cam, the right-hand side and,
+    inside the CG, the operator results, the block-Jacobi diagonal and the
+    coarse E. The normal blocks stay local and are damped per shard; a
+    reduced solve is always the CG. The CG runs one iteration at a time, its
+    stop read before each one (a masked iteration would cost collectives)."""
+    stats = new_stats() if stats is None else stats
+    system = _schur_system(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=loss,
+                           f_scale=f_scale, reduce=reduce)
+    if _dense_mode(cfg, reduce):
+        dcam = _dense_solve(system, prob, n_cam)
+    else:
+        cg = _cg_of(system, prob, n_cam, cfg, x0_cam, stats, reduce=reduce)
+        run_cg(lambda: cg.iterations(1), cg.status, 1, stats, read_first=True)
+        dcam = cg.solution()
+    return _back_substitute(dcam, system, prob, n_pts, reduce=reduce)
+
+
+_CAPTURE = {}
+# the kinds of problem (_Iteration.kind) whose phases have run on their
+# card's capture stream
+_WARMED = set()
+
+
+def _capture_context(dev):
+    """(stream, pool) of a card: the side stream on which its LM phases are
+    warmed up and captured, and the memory pool all its captures share.
+
+    One of each a card: the libraries' per-stream handles and workspaces
+    come into being once, and a problem's graphs take the memory that the
+    graphs of problems freed before it held, where a pool of their own
+    would cudaMalloc it anew (each new segment costs milliseconds). The
+    pool is that of an anchor graph of one small fill, kept for the
+    process, so that it outlives every solver's graphs (and keeps the most
+    memory the graphs alive at once have needed). The sharing is safe
+    because solves run one at a time: a problem keeps values in the pool
+    only from one phase to the next within its solve, and each solve's
+    first phase writes them anew."""
+    key = dev.index if dev.index is not None else torch.cuda.current_device()
+    if key not in _CAPTURE:
+        stream, anchor = torch.cuda.Stream(key), torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            anchor.capture_begin()
+            try:
+                torch.zeros(1, device=torch.device("cuda", key))
+            finally:
+                anchor.capture_end()
+        _CAPTURE[key] = (stream, anchor)
+    stream, anchor = _CAPTURE[key]
+    return stream, anchor.pool()
+
+
+class _Graph:
+    """A CUDA graph of one phase. Capturing runs nothing: the operator
+    applications and kernel launches (ops/launches.py) the phase makes
+    while it is captured are taken off the counters again, and every replay
+    adds them. The capture calls the graph's own begin and end on the
+    capture stream: torch.cuda.graph's context would also synchronize and
+    empty the allocator's cache at each of a problem's three captures."""
+
+    def __init__(self, fn, pool, stream, stats):
+        matvecs, before = stats["matvecs"], launches.snapshot()
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.stream(stream):
+                self.graph.capture_begin(pool=pool)
+                try:
+                    fn()
+                finally:
+                    self.graph.capture_end()
+        finally:
+            self.matvecs = stats["matvecs"] - matvecs
+            self.launches = launches.take(before)
+            stats["matvecs"] = matvecs
+
+    def replay(self, stats):
+        self.graph.replay()
+        stats["matvecs"] += self.matvecs
+        launches.add(self.launches)
+        stats["graph_replays"] += 1
+
+
+class _Iteration:
+    """One LM iteration of one problem under one loss, as phases on state
+    tensors of its own that the phases update in place (cam, pts, lam, cost,
+    done, dcam_prev; the host fills them only at the start of a solve):
+
+      pre:   the Jacobians, the damped Schur system and the CG's set-up
+             (fold, operator binding, preconditioner, coarse level, warm
+             start), or the dense solve;
+      block: k masked CG iterations and their status (it, active);
+      post:  the back-substitution, the trial cost and the accept / reject.
+
+    With `captures` (CUDA tensors, graphs wanted) each phase becomes a CUDA
+    graph (_capture_context) at the problem's first LM iteration under this
+    loss, and every iteration of every solve replays them. The first
+    problem of its kind on the card runs that iteration eagerly on the
+    capture stream instead, as the capture's warm-up, and captures before
+    its second."""
+
+    def __init__(self, residual_fn, jac_fn, n_cam, n_pts, prob, cfg, loss, f_scale, cam, pts,
+                 captures):
+        self.residual_fn, self.jac_fn = residual_fn, jac_fn
+        self.n_cam, self.n_pts, self.prob, self.cfg = n_cam, n_pts, prob, cfg
+        self.loss, self.f_scale = loss, f_scale
+        self.dense = _dense_mode(cfg)
+        self.captures = captures
+        self.k = cg_block(cfg.cg_iters, captures)
+        dev, dt = cam.device, cam.dtype
+        # what decides the ops the phases run, beside the shapes
+        self.kind = (str(dev), cam.shape[1], cfg.tie_tail, self.dense, cfg.cg_coarse, cfg.matvec)
+        self.cam, self.pts = torch.empty_like(cam), torch.empty_like(pts)
+        self.dcam_prev = torch.empty_like(cam)
+        self.lam, self.cost, self.cost_floor = (torch.empty((), dtype=dt, device=dev)
+                                                for _ in range(3))
+        self.done = torch.empty((), dtype=torch.bool, device=dev)
+        self.graphs = None
+        self.stats = new_stats()
+
+    def fill(self, cam, pts, cost, cost_floor):
+        self.cam.copy_(cam)
+        self.pts.copy_(pts)
+        self.lam.fill_(self.cfg.lambda0)
+        self.cost.copy_(cost)
+        self.cost_floor.copy_(cost_floor)
+        self.done.fill_(False)
+        self.dcam_prev.zero_()
+
+    def pre(self):
+        r, J_cam, J_pt = self.jac_fn(self.cam, self.pts)
+        self.system = _schur_system(r, J_cam, J_pt, self.lam, self.prob, self.n_cam, self.n_pts,
+                                    self.cfg, loss=self.loss, f_scale=self.f_scale)
+        if self.dense:
+            self.dcam = _dense_solve(self.system, self.prob, self.n_cam)
+        else:
+            self.cg = _cg_of(self.system, self.prob, self.n_cam, self.cfg, self.dcam_prev,
+                             self.stats)
+
+    def block(self):
+        self.cg.iterations(self.k)
+
+    def post(self):
+        cfg = self.cfg
+        dcam = self.dcam if self.dense else self.cg.solution()
+        dcam, dpt = _back_substitute(dcam, self.system, self.prob, self.n_pts)
+        cam, pts, lam, cost = self.cam, self.pts, self.lam, self.cost
+        cam_new = cam + dcam
+        pts_new = pts + dpt
+        new_cost = loss_cost(self.loss, self.residual_fn(cam_new, pts_new), self.f_scale)
+        improved = new_cost < cost
+        rel_drop = (cost - new_cost) / torch.clamp(cost, min=1e-30)
+        # scipy-TRF-style step-size criterion (xtol)
+        step_norm = torch.sqrt(torch.sum(dcam * dcam) + torch.sum(dpt * dpt))
+        x_norm = torch.sqrt(torch.sum(cam * cam) + torch.sum(pts * pts))
+        small_step = step_norm < cfg.xtol * (x_norm + cfg.xtol)
+        lam_new = torch.where(improved, lam / cfg.lambda_down, lam * cfg.lambda_up)
+        cost_new = torch.where(improved, new_cost, cost)
+        done = (
+            self.done
+            | (improved & (rel_drop < cfg.ftol))
+            | (improved & small_step)
+            | (lam_new > 1e12)
+            | (cost_new <= self.cost_floor)
+        )
+        self.cam.copy_(torch.where(improved, cam_new, cam))
+        self.pts.copy_(torch.where(improved, pts_new, pts))
+        self.lam.copy_(lam_new)
+        self.cost.copy_(cost_new)
+        self.done.copy_(done)
+        # the step warm-starts the next CG, even when rejected
+        self.dcam_prev.copy_(dcam.to(cam.dtype))
+
+    def phases(self):
+        return ("pre", "post") if self.dense else ("pre", "block", "post")
+
+    def capture(self, stats):
+        """Each phase as a CUDA graph, on the card's capture stream (which
+        ran the first iteration) and memory pool."""
+        stream, pool = _capture_context(self.cam.device)
+        self.stats = stats
+        self.graphs = {name: _Graph(getattr(self, name), pool, stream, stats)
+                       for name in self.phases()}
+
+    def phase(self, name, stats):
+        if self.graphs is not None:
+            self.graphs[name].replay(stats)
+        else:
+            self.stats = stats
+            getattr(self, name)()
+
+    def one(self, stats):
+        """One LM iteration: its phases, the CG blocks until their stop."""
+        self.phase("pre", stats)
+        if not self.dense:
+            run_cg(lambda: self.phase("block", stats), self.cg.status, self.k, stats)
+        self.phase("post", stats)
+
+    def warm_up(self, stats):
+        """One LM iteration, eagerly on the capture stream: the libraries'
+        handles and workspaces for that stream come into being outside a
+        capture."""
+        stream = _capture_context(self.cam.device)[0]
+        current = torch.cuda.current_stream(self.cam.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.one(stats)
+        current.wait_stream(stream)
+        _WARMED.add(self.kind)
+
+    def iterate(self, max_iter, stats):
+        """Up to max_iter LM iterations; returns how many were committed.
+        The host reads the LM's stop before each iteration after the first,
+        and the CG's once a block. With `captures`, the phases are captured
+        before the first iteration that finds none, unless no problem of
+        this kind has been captured on the card yet: that iteration is then
+        the warm-up, and the capture comes before the next one."""
+        n_iter = 0
+        while n_iter < max_iter:
+            if n_iter:
+                stats["host_syncs"] += 1
+                if bool(self.done):
+                    break
+            if self.captures and self.graphs is None:
+                if not n_iter and self.kind not in _WARMED:
+                    self.warm_up(stats)
+                    n_iter += 1
+                    continue
+                t0 = time.perf_counter()
+                self.capture(stats)
+                stats["capture_s"] += time.perf_counter() - t0
+            self.one(stats)
+            n_iter += 1
+        return n_iter
+
+
+def build_solve(residual_fn, jac_fn, n_cam, n_pts, prob, cfg, graphs=True):
     """The LM driver for one problem: run(cam, pts, max_iter, loss, f_scale,
-    stats) -> (cam, pts, info). One host sync per LM iteration (plus the
-    CG's)."""
+    stats) -> (cam, pts, info).
+
+    Counterpart of the JAX package's build_solve, whose LM and CG loops are
+    two lax.while_loops in one device program. Here one LM iteration is the
+    phases of _Iteration, kept per (loss, f_scale). On CUDA tensors each
+    phase is a CUDA graph, captured once per problem and loss (_Iteration:
+    the first problem of its kind on a card runs its first LM iteration
+    eagerly as the warm-up) and replayed by every LM iteration after it, so
+    that a CG block is one launch and the host reads the device once a
+    block (at most ceil(CG iterations / k) + 1 reads an LM iteration; the
+    graphs live as long as `run`). A capture or replay that fails raises.
+    graphs=False runs the same phases eagerly on the card, one CG iteration
+    a block: for checks of the graphs' bits only. On CPU tensors the phases
+    always run so."""
     if not cfg.cg_iters:
         cfg = cfg._replace(cg_iters=default_cg_iters(n_cam))
     n_obs = int(prob.pts2d.shape[0])
+    steps = {}
 
     def run(cam, pts, max_iter, loss, f_scale, stats=None):
         stats = new_stats() if stats is None else stats
@@ -606,48 +942,19 @@ def build_solve(residual_fn, jac_fn, n_cam, n_pts, prob, cfg):
         cost0 = loss_cost(loss, r0, f_scale)
         # "exactly solved" floor: 1e-14 px^2 per observation
         cost_floor = torch.clamp(1e-15 * torch.clamp(cost0, min=1.0), min=1e-14 * n_obs)
-        lam = torch.tensor(cfg.lambda0, dtype=cam.dtype, device=cam.device)
-        cost = cost0
-        done = torch.zeros((), dtype=torch.bool, device=cam.device)
-        dcam_prev = torch.zeros_like(cam)
-        n_iter = 0
-        while n_iter < max_iter:
-            if n_iter > 0:
-                stats["host_syncs"] += 1
-                if bool(done):
-                    break
-            r, J_cam, J_pt = jac_fn(cam, pts)
-            dcam, dpt = lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg,
-                                loss=loss, f_scale=f_scale, x0_cam=dcam_prev,
-                                stats=stats)
-            cam_new = cam + dcam
-            pts_new = pts + dpt
-            new_cost = loss_cost(loss, residual_fn(cam_new, pts_new), f_scale)
-            improved = new_cost < cost
-            rel_drop = (cost - new_cost) / torch.clamp(cost, min=1e-30)
-            # scipy-TRF-style step-size criterion (xtol)
-            step_norm = torch.sqrt(torch.sum(dcam * dcam) + torch.sum(dpt * dpt))
-            x_norm = torch.sqrt(torch.sum(cam * cam) + torch.sum(pts * pts))
-            small_step = step_norm < cfg.xtol * (x_norm + cfg.xtol)
-            cam = torch.where(improved, cam_new, cam)
-            pts = torch.where(improved, pts_new, pts)
-            lam = torch.where(improved, lam / cfg.lambda_down, lam * cfg.lambda_up)
-            cost = torch.where(improved, new_cost, cost)
-            done = (
-                done
-                | (improved & (rel_drop < cfg.ftol))
-                | (improved & small_step)
-                | (lam > 1e12)
-                | (cost <= cost_floor)
-            )
-            # the step warm-starts the next CG, even when rejected
-            dcam_prev = dcam.to(cam.dtype)
-            n_iter += 1
+        key = (loss, float(f_scale))
+        if key not in steps:
+            steps[key] = _Iteration(residual_fn, jac_fn, n_cam, n_pts, prob, cfg, loss, f_scale,
+                                    cam, pts, graphs and cam.device.type == "cuda")
+        step = steps[key]
+        step.fill(cam, pts, cost0, cost_floor)
+        n_iter = step.iterate(max_iter, stats)
+        cam, pts = step.cam.clone(), step.pts.clone()
         r_fin = residual_fn(cam, pts)
         w = prob.weights[:, None]
         errs = torch.stack([torch.linalg.norm(r0 / w, dim=1),
                             torch.linalg.norm(r_fin / w, dim=1)]).to(torch.float32)
-        scalars = torch.stack([lam, cost, cost0]).cpu().numpy()
+        scalars = torch.stack([step.lam, step.cost, cost0]).cpu().numpy()
         errs = errs.cpu().numpy()
         info = {
             "cost0": float(scalars[2]),
@@ -664,8 +971,9 @@ def build_solve(residual_fn, jac_fn, n_cam, n_pts, prob, cfg):
 
 
 def solve(residual_fn, jac_fn, cam0, pts0, prob, cfg, stats=None):
-    """Full LM solve from (cam0, pts0). Returns (cam, pts, info); info holds
-    cost0/cost, per-observation errors err0/err_fin, iterations, lambda and
-    the counters of new_stats()."""
+    """Full LM solve from (cam0, pts0) through a build_solve of its own (on
+    CUDA tensors its graphs serve this solve alone). Returns (cam, pts,
+    info); info holds cost0/cost, per-observation errors err0/err_fin,
+    iterations, lambda and the counters of new_stats()."""
     run = build_solve(residual_fn, jac_fn, cam0.shape[0], pts0.shape[0], prob, cfg)
     return run(cam0, pts0, cfg.max_iter, cfg.loss, cfg.f_scale, stats=stats)

@@ -18,7 +18,10 @@ only in the order of the sums.
 
 `SchurOperator` binds the operands once (checks, scratch, output, launch
 geometry); calling it launches the kernels with no per-call checks,
-allocation or host sync. `schur_wz` binds and calls once.
+allocation or host sync. `schur_wz` binds and calls once. Binding and
+calling are safe inside a CUDA graph capture (ops/lm.build_solve captures
+them): the scratch and output come from the capture's memory pool, and
+binding's only CUDA call sets the kernels' attributes.
 """
 
 import ctypes
@@ -51,6 +54,7 @@ class _Args(ctypes.Structure):
 _SIGNATURES = {
     "schur_wz_prepare": (ctypes.c_int, [ctypes.POINTER(_Args)]),
     "schur_wz_run": (ctypes.c_int, [ctypes.POINTER(_Args)] + [ctypes.c_void_p] * 3),
+    "schur_wz_graph_edges": (ctypes.c_int, [ctypes.POINTER(_Args)] + [ctypes.c_void_p] * 3),
 }
 
 
@@ -167,6 +171,17 @@ class SchurOperator:
             raise RuntimeError("schur_wz kernel launch failed: CUDA error {}".format(err))
         schur_wz.launches += 1
         return self.out
+
+
+def graph_edges(op, x):
+    """One call of a bound CUDA operator captured into a CUDA graph of its
+    own and not run: {"nodes", "edges", "programmatic"}, the last the edges
+    that keep schur_cameras a dependent launch inside a graph."""
+    out = (ctypes.c_int * 3)()
+    err = op._lib.schur_wz_graph_edges(op._argp, x.data_ptr(), op._out_ptr, out)
+    if err != 0:
+        raise RuntimeError("schur_wz: graph capture failed: CUDA error {}".format(err))
+    return dict(zip(("nodes", "edges", "programmatic"), out))
 
 
 def schur_wz(x, W_pt, cam_ind_pt, W_cm, pts_ind_cam):

@@ -39,20 +39,21 @@ def chol3x3(A, eps=0.0):
     """Batched closed-form Cholesky factor of SPD (..., 3, 3) matrices.
 
     eps: additive diagonal jitter. Pivots are floored at 1e-30 so that a
-    semidefinite block yields a finite factor."""
+    semidefinite block yields a finite factor (a clamp by a Python scalar: a
+    scalar tensor made from the host would be a copy, which a CUDA graph
+    capture refuses)."""
     a11 = A[..., 0, 0] + eps
     a21 = A[..., 1, 0]
     a31 = A[..., 2, 0]
     a22 = A[..., 1, 1] + eps
     a32 = A[..., 2, 1]
     a33 = A[..., 2, 2] + eps
-    tiny = torch.tensor(1e-30, dtype=A.dtype, device=A.device)
-    l11 = torch.sqrt(torch.maximum(a11, tiny))
+    l11 = torch.sqrt(torch.clamp(a11, min=1e-30))
     l21 = a21 / l11
     l31 = a31 / l11
-    l22 = torch.sqrt(torch.maximum(a22 - l21 * l21, tiny))
+    l22 = torch.sqrt(torch.clamp(a22 - l21 * l21, min=1e-30))
     l32 = (a32 - l31 * l21) / l22
-    l33 = torch.sqrt(torch.maximum(a33 - l31 * l31 - l32 * l32, tiny))
+    l33 = torch.sqrt(torch.clamp(a33 - l31 * l31 - l32 * l32, min=1e-30))
     z = torch.zeros_like(l11)
     return torch.stack(
         [

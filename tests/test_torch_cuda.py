@@ -13,6 +13,8 @@ here so that both these tests and the CPU tests of
 tests/test_torch_matvec.py use them.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -339,6 +341,25 @@ def _fractional_operands(device):
     return d_i, d_j, li, hj, vi, vj, thr
 
 
+def _excess_over_exact_minimum(out, d_i, d_j, li, hj, vi, vj, thr):
+    """Per row with a match: the exact distance (float64, from the float32
+    descriptors) to the column in idx minus the exact minimum over the
+    row's valid columns that pass the gate (the plain version's float32
+    gate, in its order)."""
+    excess = []
+    for b in range(d_i.shape[0]):
+        di, dj = d_i[b].double(), d_j[b].double()
+        exact = (di * di).sum(1)[:, None] + (dj * dj).sum(1)[None, :] - 2.0 * (di @ dj.T)
+        l, h = li[b], hj[b]
+        num = (l[:, 0:1] * h[None, :, 0] + l[:, 1:2] * h[None, :, 1]) + l[:, 2:3] * h[None, :, 2]
+        denom = l[:, 0:1] * l[:, 0:1] + l[:, 1:2] * l[:, 1:2]
+        ok = (num * num <= (thr[b] * thr[b]) * denom) & (vi[b][:, None] > 0) & (vj[b][None, :] > 0)
+        best = torch.where(ok, exact, torch.full_like(exact, math.inf)).min(1).values
+        at = exact.gather(1, out[b, 2].long()[:, None])[:, 0]
+        excess.append((at - best)[out[b, 0] < nm.BIG])
+    return torch.cat(excess)
+
+
 @pytest.mark.cuda
 def test_nn2_f32_kernel_on_non_integer_descriptors(cuda):
     """The f32 kernel on descriptors with fractional parts. A distance is
@@ -347,9 +368,13 @@ def test_nn2_f32_kernel_on_non_integer_descriptors(cuda):
     sums the 128 products and squares in another order than the plain
     version's cuBLAS product and reductions: distances agree to 16 ulps of S
     (measured on the TF32 tensor-core kernel: 4.5 against a tolerance of
-    13.4); the argmin may differ only on rows whose two nearest columns lie
-    within twice that tolerance (measured: 15 of 1500 rows, the bar's edge;
-    the descriptors repeat columns, so near ties are common)."""
+    13.4). The argmin may move against the plain version only on rows whose
+    two nearest columns lie within twice that tolerance (the descriptors
+    repeat columns, so near ties are common), and on every row with a match
+    the exact distance to the kernel's column lies within twice that
+    tolerance of the exact minimum over the valid columns that pass the
+    gate: the bar is held against exact distances, not against the plain
+    version's order of sums."""
     d_i, d_j, li, hj, vi, vj, thr = _fractional_operands(cuda)
     got = nm.nn2_batched(d_i, d_j, li, hj, vi, vj, thr)
     ref = nm.nn2_plain(d_i, d_j, li, hj, vi, vj, thr)
@@ -358,11 +383,14 @@ def test_nn2_f32_kernel_on_non_integer_descriptors(cuda):
     tol = 16 * torch.finfo(torch.float32).eps * S
     err = float((got[:, :2] - ref[:, :2]).abs().max())
     moved = got[:, 2] != ref[:, 2]
+    excess = _excess_over_exact_minimum(got, d_i, d_j, li, hj, vi, vj, thr)
     print("non-integer descriptors: max|err| {} (16 ulp of S: {}), argmin moved in {} of {} "
-          "rows".format(err, tol, int(moved.sum()), moved.numel()))
+          "rows; exact distance to the kernel's column over the exact minimum: max {} on {} "
+          "rows".format(err, tol, int(moved.sum()), moved.numel(), float(excess.max()),
+                        excess.numel()))
     assert err <= tol
     assert bool(((ref[:, 1] - ref[:, 0])[moved] <= 2 * tol).all())
-    assert float(moved.float().mean()) < 0.01
+    assert excess.numel() > 500 and float(excess.max()) <= 2 * tol
 
 
 def _d1_error_to_exact(out, d_i, d_j):
@@ -379,15 +407,15 @@ def _d1_error_to_exact(out, d_i, d_j):
 @pytest.mark.cuda
 def test_nn2_f32_kernel_bias_against_exact_distances(cuda):
     """The TF32 split's distances against exact ones. The tensor cores
-    truncate toward zero where they add, so on positive descriptors the
-    cross term comes out low and every distance high: a mean bias, where the
-    plain version's rounding errors have mean ~0. The mean must stay within
-    4 eps * S (S = max(sq_i) + max(sq_j)): above what two main chains of 8
-    k-steps give (1.5 eps * S here, 2.85 on slice C's SIFT descriptors in
-    chip_smoke.py), below the ~3x of one chain of 16; every error within
+    truncate toward zero where they add, so on positive descriptors a sum
+    they carry comes out low and every distance high; the kernel adds each
+    k-step's sum of 8 products on the CUDA cores, round-to-nearest, so that
+    only those short sums are truncated. The mean of d1's error must stay
+    within 0.5 eps * S (S = max(sq_i) + max(sq_j)), every error within
     16 eps * S. Measured on these operands (744 rows with a match,
-    eps * S = 0.84): kernel mean +1.27, max |err| 2.71; plain version mean
-    -0.016, max |err| 3.04."""
+    eps * S = 0.84) with the main products in two tensor-core chains of 8
+    k-steps: mean +1.27, max |err| 2.71; the plain version: mean -0.016,
+    max |err| 3.04."""
     d_i, d_j, li, hj, vi, vj, thr = _fractional_operands(cuda)
     got = nm.nn2_batched(d_i, d_j, li, hj, vi, vj, thr)
     ref = nm.nn2_plain(d_i, d_j, li, hj, vi, vj, thr)
@@ -400,7 +428,7 @@ def test_nn2_f32_kernel_bias_against_exact_distances(cuda):
               float(e_got.mean()), float(e_got.abs().max()), float(e_ref.mean()),
               float(e_ref.abs().max()), S, eps * S, e_got.numel()))
     assert e_got.numel() > 500
-    assert abs(float(e_got.mean())) <= 4 * eps * S
+    assert abs(float(e_got.mean())) <= 0.5 * eps * S
     assert float(e_got.abs().max()) <= 16 * eps * S
 
 
@@ -587,6 +615,129 @@ def test_detect_tpu_on_the_card_is_the_batched_detection(cuda):
     assert single.shape[0] > 100 and np.array_equal(single, batched)
 
 
+def _graph_solver(case, device):
+    """A BASolver on the card: the rpc demo scene, or matrix cameras with R,
+    T, K and COMMON_K (affine P = 8, perspective P = 11)."""
+    if case == "rpc":
+        scene = demo.make_scene_arrays(n_cam=20, n_pts=3000, seed=0, device="cpu")
+        return tsolver.BASolver(demo.scene_to_baparams(scene), device=device)
+    from sat_bundleadjust_tpu_torch.ba.params import BAParams
+
+    s = demo.make_matrix_scene(case, n_cam=30, n_pts=2000, obs_per_pt=4, n_views=8,
+                               noise_px=0.05, seed=0)
+    p = BAParams.from_obs_table(s["pts_ind"], s["cam_ind"], s["pts2d"], s["pts0"],
+                                s["cameras_init"], case, s["camera_centers"], [],
+                                {"verbose": False,
+                                 "correction_params": ["R", "T", "K", "COMMON_K"]})
+    return tsolver.BASolver(p, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,P", [("rpc", 3), ("affine", 8), ("perspective", 11)])
+def test_captured_solve_gives_the_eager_bits(cuda, case, P):
+    """BASolver's solve on the card, each LM iteration's phases as CUDA
+    graphs captured at the first solve (after its first LM iteration, run
+    eagerly, where the problem is the first of its kind), against the same
+    phases run eagerly (graphs=False, one CG iteration a block): the same cameras, points and errors bit for bit,
+    the same LM and CG iterations. A second solve replays the graphs
+    without a capture and has the first's counters; schur_wz launches
+    equal the operator applications under replay; at most ceil(n / k) + 1
+    host reads per LM step of n CG iterations."""
+    solver = _graph_solver(case, cuda)
+    assert solver.mode == "cg" and solver.p.n_params == P
+    ls = {"max_iter": 15}
+    launches0 = smv.schur_wz.launches
+    _, (cam_g, pts_g), _, err_g, captured = solver.solve(ls)
+    torch.cuda.synchronize()
+    launches1 = smv.schur_wz.launches
+    _, (cam_r, pts_r), _, err_r, replayed = solver.solve(ls)
+    torch.cuda.synchronize()
+    launches2 = smv.schur_wz.launches
+    _, (cam_e, pts_e), _, err_e, eager = solver.solve(ls, graphs=False)
+    torch.cuda.synchronize()
+    for cam, pts, err in ((cam_g, pts_g, err_g), (cam_r, pts_r, err_r)):
+        assert torch.equal(cam, cam_e) and torch.equal(pts, pts_e)
+        assert np.array_equal(err, err_e)
+    for key in ("iterations", "cg_steps", "cg_iterations"):
+        assert captured[key] == replayed[key] == eager[key], key
+    for key in ("host_syncs", "cg_masked", "matvecs"):
+        assert captured[key] == replayed[key], key
+    assert eager["cg_masked"] == sum(n == 0 for n in eager["cg_steps"])
+    assert captured["capture_s"] > 0 and replayed["capture_s"] == 0.0
+    assert replayed["graph_replays"] >= captured["graph_replays"] > 0
+    assert eager["graph_replays"] == 0
+    assert launches1 - launches0 == captured["matvecs"] and launches2 - launches1 == (
+        replayed["matvecs"])
+    cg_iters = solver.config(ls).cg_iters or tlm.default_cg_iters(solver.p.n_cam)
+    for info, k in ((replayed, tlm.cg_block(cg_iters, True)),
+                    (eager, tlm.cg_block(cg_iters, False))):
+        assert info["host_syncs"] <= sum(-(-n // k) + 1 for n in info["cg_steps"])
+
+
+@pytest.mark.cuda
+def test_captured_solves_of_two_problems_interleave(cuda):
+    """Two problems whose graphs share the card's memory pool, solved in
+    turn (each captured at its first solve, the first problem replayed after
+    the second's capture, then the second again): every solve gives its
+    eager solve's bits."""
+    solvers = [_graph_solver("rpc", cuda), _graph_solver("affine", cuda)]
+    ls = {"max_iter": 15}
+    eager = [s.solve(ls, graphs=False)[1] for s in solvers]
+    for n in (0, 1, 0, 1):
+        _, (cam, pts), _, _, info = solvers[n].solve(ls)
+        assert info["graph_replays"] > 0
+        assert torch.equal(cam, eager[n][0]) and torch.equal(pts, eager[n][1]), n
+
+
+def _failed_capture():
+    """A child process's check: a solve whose Jacobians read the device from
+    the host, which a capture refuses, raises. (An aborted capture leaves
+    torch's generator and allocator in their capture state, so it runs in a
+    process of its own.)"""
+    solver = _graph_solver("rpc", torch.device("cuda"))
+    jac_fn = solver.jac_fn
+
+    def reading_jac_fn(cam, pts):
+        out = jac_fn(cam, pts)
+        float(out[0].sum())  # a host read
+        return out
+
+    solver.jac_fn = reading_jac_fn
+    try:
+        solver.solve({"max_iter": 5})
+    except RuntimeError as e:
+        print("raised {}: {}".format(type(e).__name__, str(e)[:200]))
+        return
+    raise SystemExit("the solve did not raise")
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda):
+    """A phase that cannot be captured makes the solve raise: no eager run
+    takes its place (in a child process, _failed_capture)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    child = subprocess.run([sys.executable, __file__, "failed_capture"], capture_output=True,
+                           text=True, timeout=300, cwd=repo, env=env)
+    assert child.returncode == 0 and "raised" in child.stdout, child.stdout + child.stderr[-3000:]
+
+
+@pytest.mark.cuda
+def test_schur_operator_keeps_its_dependent_launch_in_a_graph(cuda):
+    """One call of the bound operator captured into a CUDA graph: two kernel
+    nodes and one edge, a programmatic one (schur_cameras stays a dependent
+    launch of schur_points inside the solve's graphs)."""
+    args = _operands(cuda, 16, 2000)
+    op = smv.SchurOperator(*args)
+    x = torch.randn(args[2].shape[0], args[2].shape[2], dtype=torch.float32, device=cuda)
+    assert smv.graph_edges(op, x) == {"nodes": 2, "edges": 1, "programmatic": 1}
+
+
 @pytest.mark.cuda
 def test_bench_ba_mode_on_the_card(cuda, monkeypatch):
     """The port's bench (`sat_bundleadjust_tpu_torch/bench.py`) in ba mode at
@@ -685,4 +836,7 @@ def test_distributed_solve_on_the_card(cuda, tmp_path, backend, world):
 if __name__ == "__main__":
     import sys
 
-    _dist_rank(*sys.argv[1:])
+    if sys.argv[1:] == ["failed_capture"]:
+        _failed_capture()
+    else:
+        _dist_rank(*sys.argv[1:])

@@ -319,25 +319,35 @@ def _tf32(x):
     return r.astype(np.uint32).view(np.float32)
 
 
+def _rz32(x):
+    """float64 -> float32 rounded toward zero, as the tensor cores round the
+    sums they carry."""
+    f = np.asarray(x, np.float64).astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(x)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
 def _tf32_cross(a, b):
     """The f32 kernel's cross term a . b^T in its k order: a = a_hi + a_lo,
-    b = b_hi + b_lo (TF32 each); k-step s takes elements 8s .. 8s + 7, its
-    eight products summed exactly and added to its chain in f32: main
-    products of k-steps 0-7 in m0, of 8-15 in m1, the corrections a_hi.b_lo
-    then a_lo.b_hi in cc; cross = (m0 + m1) + cc. (The tensor cores round
-    where they add in their own way; on integer descriptors every sum is
-    exact and the model gives the kernel's bits.)"""
+    b = b_hi + b_lo (TF32 each); k-step s takes elements 8s .. 8s + 7. The
+    main products a_hi.b_hi of each k-step, summed exactly and rounded
+    toward zero (a fresh tensor-core accumulator), are added to `main` in
+    f32, round-to-nearest, in k order; the corrections a_hi.b_lo then
+    a_lo.b_hi are added to one chain, cc, each add rounded toward zero
+    (the tensor cores' accumulator); cross = main + cc. (Where the tensor
+    cores round inside a sum of 8 products is their own; on integer
+    descriptors every sum is exact and the model gives the kernel's bits.)"""
     a_hi, b_hi = _tf32(a), _tf32(b)
     a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    m = [np.zeros((a.shape[0], b.shape[0]), np.float32) for _ in range(2)]
-    cc = np.zeros_like(m[0])
+    main = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    cc = np.zeros_like(main)
     for s in range(16):
         k = slice(8 * s, 8 * s + 8)
-        m[s // 8] = (m[s // 8] + a_hi[:, k].astype(np.float64) @ b_hi[:, k].T.astype(np.float64)
-                     ).astype(np.float32)
+        main = main + _rz32(a_hi[:, k].astype(np.float64) @ b_hi[:, k].T.astype(np.float64))
         for x, y in ((a_hi, b_lo), (a_lo, b_hi)):
-            cc = (cc + x[:, k].astype(np.float64) @ y[:, k].T.astype(np.float64)).astype(np.float32)
-    return (m[0] + m[1]) + cc
+            cc = _rz32(cc + x[:, k].astype(np.float64) @ y[:, k].T.astype(np.float64))
+    return main + cc
 
 
 def _f32_tensor_core_schedule(d_i, d_j, li, hj, vi, vj, thr, S):
@@ -488,6 +498,33 @@ def test_f32_tensor_core_schedule_on_non_integer_descriptors(S):
     moved = model[:, 2] != want[:, 2]
     assert np.all((want[:, 1] - want[:, 0])[moved] <= 2 * tol)
     assert (model[:2, 0] < nm.BIG).sum() > 80  # every valid row of pairs 0 and 1
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_f32_tensor_core_model_bias_against_exact_distances(seed):
+    """The model of the kernel's cross term (_tf32_cross: each k-step's 8
+    main products in a fresh accumulator rounded toward zero, then added
+    round-to-nearest) on 0..255 descriptors plus a [0, 1) fraction, half of
+    the rows repeated among the columns: d1's mean error against the exact
+    (float64) distance to its column stays within the card's bar of
+    0.5 eps * S (S = max sq_i + max sq_j), and every error within 16."""
+    rng = np.random.RandomState(seed)
+    d_i = rng.randint(0, 256, (300, 128)).astype(np.float32)
+    d_j = rng.randint(0, 256, (600, 128)).astype(np.float32)
+    d_j[:150] = d_i[:150]
+    d_i += rng.rand(*d_i.shape).astype(np.float32)
+    d_j += rng.rand(*d_j.shape).astype(np.float32)
+    sq_i = (d_i.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    sq_j = (d_j.astype(np.float64) ** 2).sum(1).astype(np.float32)
+    dist = np.maximum((sq_i[:, None] + sq_j[None, :]) - np.float32(2) * _tf32_cross(d_i, d_j),
+                      np.float32(0))
+    j = dist.argmin(1)
+    rows = np.arange(len(d_i))
+    exact = ((d_i.astype(np.float64) - d_j[j].astype(np.float64)) ** 2).sum(1)
+    err = dist[rows, j].astype(np.float64) - exact
+    eps_S = np.finfo(np.float32).eps * float(sq_i.max() + sq_j.max())
+    assert abs(err.mean()) <= 0.5 * eps_S, err.mean() / eps_S
+    assert np.abs(err).max() <= 16 * eps_S
 
 
 def test_gate_is_elementwise_and_one_sided():

@@ -78,7 +78,7 @@ def test_lm_step_cg_matches_jax(step_inputs, lam, matvec):
     (jc, jpt), (tc, tpt), stats = _steps(step_inputs, cfg, tcfg, lam)
     assert 0 < stats["cg_iterations"] <= tlm.default_cg_iters(step_inputs["M"])
     # one operator application per CG iteration, one host sync per loop test
-    assert stats["matvecs"] == stats["cg_iterations"]
+    assert stats["matvecs"] == stats["cg_iterations"] and stats["cg_masked"] == 0
     assert stats["host_syncs"] in (stats["cg_iterations"], stats["cg_iterations"] + 1)
     assert _rel(tc, jc) <= 1e-3
     assert _rel(tpt, jpt) <= 1e-3
@@ -113,3 +113,14 @@ def test_solve_stats_count_cg_work():
     assert info["matvecs"] >= info["cg_iterations"] > 0
     # one sync per CG loop test and one per LM loop test after the first
     assert info["host_syncs"] >= info["cg_iterations"] + info["iterations"] - 1
+    assert info["cg_iterations"] == sum(info["cg_steps"])
+    assert len(info["cg_steps"]) == info["iterations"]
+    # on the CPU a CG block is one iteration, read after it (the first block
+    # of a step runs, masked, even when the step needs no iteration)
+    stopped = int(info["iterations"] < 10)
+    assert info["host_syncs"] == (sum(max(1, n) for n in info["cg_steps"]) + info["iterations"]
+                                  - 1 + stopped)
+    assert info["cg_masked"] == sum(n == 0 for n in info["cg_steps"])
+    # one application per CG iteration run and one for each warm start
+    assert info["matvecs"] == info["cg_iterations"] + info["cg_masked"] + info["iterations"]
+    assert info["graph_replays"] == 0 and info["capture_s"] == 0.0
