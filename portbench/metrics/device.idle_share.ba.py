@@ -1,0 +1,10 @@
+"""device.idle_share.ba (%): the share of the traced BA stages' wall in
+which no operation ran on the device: 1 - the union of the device
+operations' spans over the traced window."""
+
+
+def read(run):
+    t = run["trace"]
+    if t is None or not run["units"] or "shapes" not in run["units"][0]:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
