@@ -20,6 +20,7 @@ import torch
 from sat_bundleadjust_tpu_torch.models import cameras as cam_utils
 from sat_bundleadjust_tpu_torch.models.rotations import euler_angles_from_R, euler_angles_to_R
 from sat_bundleadjust_tpu_torch.models.rpc import stack_rpcs
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
 def load_cam_params_from_camera(camera, camera_center, cam_model):
@@ -102,10 +103,11 @@ class BAParams:
         if reduce:
             self._reduce()
 
-        self.cam_params = np.array(
-            [load_cam_params_from_camera(c, oC, cam_model)
-             for c, oC in zip(self.cameras, self.camera_centers)]
-        )
+        with span("ba.params.cameras", cameras=len(self.cameras)):
+            self.cam_params = np.array(
+                [load_cam_params_from_camera(c, oC, cam_model)
+                 for c, oC in zip(self.cameras, self.camera_centers)]
+            )
 
         # flat observation table in point-major (point, camera) order
         mask = ~np.isnan(self.C[::2, :])  # (M, N)
@@ -160,7 +162,8 @@ class BAParams:
         self.pts_opt_mask[: self.n_pts_fix] = 0.0
 
         # host copy of the batched RPCs; the solver moves it to its device
-        self.rpcs = stack_rpcs(self.cameras, "cpu") if self.cam_model == "rpc" else None
+        with span("ba.params.stack_rpcs"):
+            self.rpcs = stack_rpcs(self.cameras, "cpu") if self.cam_model == "rpc" else None
 
         self.pts3d_ba = None
         self.cameras_ba = None
@@ -174,44 +177,47 @@ class BAParams:
         so both constructors give identical problems. No reduce pass:
         callers pass tables in which every track is observed by an
         optimizable camera."""
-        self = cls.__new__(cls)
-        d = d or {}
-        self.C = None
-        self.pts3d = np.array(pts3d, dtype=np.float64)
-        self.cameras = list(cameras)
-        self.cam_model = cam_model
-        self.pairs_to_triangulate = list(pairs_to_triangulate or [])
-        self.camera_centers = [np.asarray(c) for c in camera_centers]
+        with span("ba.params", observations=len(pts_ind)):
+            self = cls.__new__(cls)
+            d = d or {}
+            self.C = None
+            self.pts3d = np.array(pts3d, dtype=np.float64)
+            self.cameras = list(cameras)
+            self.cam_model = cam_model
+            self.pairs_to_triangulate = list(pairs_to_triangulate or [])
+            self.camera_centers = [np.asarray(c) for c in camera_centers]
 
-        self.cam_params_to_optimize = d.get("correction_params", ["R"])
-        self.ref_cam_weight = float(d.get("ref_cam_weight", 1.0))
-        self.n_cam_fix = int(d.get("n_cam_fix", 0))
-        self.n_pts_fix = int(d.get("n_pts_fix", 0))
-        self.verbose = bool(d.get("verbose", False))
+            self.cam_params_to_optimize = d.get("correction_params", ["R"])
+            self.ref_cam_weight = float(d.get("ref_cam_weight", 1.0))
+            self.n_cam_fix = int(d.get("n_cam_fix", 0))
+            self.n_pts_fix = int(d.get("n_pts_fix", 0))
+            self.verbose = bool(d.get("verbose", False))
 
-        self.n_cam = len(self.cameras)
-        self.n_pts = int(self.pts3d.shape[0])
-        self.n_cam_opt = self.n_cam - self.n_cam_fix
-        self.n_pts_opt = self.n_pts - self.n_pts_fix
-        self.cam_prev_indices = np.arange(self.n_cam)
-        self.pts_prev_indices = np.arange(self.n_pts)
+            self.n_cam = len(self.cameras)
+            self.n_pts = int(self.pts3d.shape[0])
+            self.n_cam_opt = self.n_cam - self.n_cam_fix
+            self.n_pts_opt = self.n_pts - self.n_pts_fix
+            self.cam_prev_indices = np.arange(self.n_cam)
+            self.pts_prev_indices = np.arange(self.n_pts)
 
-        self.cam_params = np.array(
-            [load_cam_params_from_camera(c, oC, cam_model)
-             for c, oC in zip(self.cameras, self.camera_centers)]
-        )
+            with span("ba.params.cameras", cameras=len(self.cameras)):
+                self.cam_params = np.array(
+                    [load_cam_params_from_camera(c, oC, cam_model)
+                     for c, oC in zip(self.cameras, self.camera_centers)]
+                )
 
-        order = np.lexsort((np.asarray(cam_ind), np.asarray(pts_ind)))
-        self.pts_ind = np.asarray(pts_ind, np.int32)[order]
-        self.cam_ind = np.asarray(cam_ind, np.int32)[order]
-        self.pts2d = np.asarray(pts2d, np.float64)[order]
-        self.n_obs = self.pts2d.shape[0]
-        self.pts2d_w = np.ones(self.n_obs)
-        if self.ref_cam_weight > 1.0:
-            self.pts2d_w[self.cam_ind == 0] = self.ref_cam_weight
+            with span("ba.params.lexsort"):
+                order = np.lexsort((np.asarray(cam_ind), np.asarray(pts_ind)))
+                self.pts_ind = np.asarray(pts_ind, np.int32)[order]
+                self.cam_ind = np.asarray(cam_ind, np.int32)[order]
+                self.pts2d = np.asarray(pts2d, np.float64)[order]
+            self.n_obs = self.pts2d.shape[0]
+            self.pts2d_w = np.ones(self.n_obs)
+            if self.ref_cam_weight > 1.0:
+                self.pts2d_w[self.cam_ind == 0] = self.ref_cam_weight
 
-        self._set_param_layout()
-        return self
+            self._set_param_layout()
+            return self
 
     def _reduce(self):
         """Drop tracks with no observation in the optimized cameras, then
@@ -260,28 +266,31 @@ class BAParams:
         """Camera models and corrected points from the solution, in the
         original (pre-reduce) indexing: (corrected_pts3d, corrected_cameras).
         cam_opt and pts3d_ba may be tensors on any device."""
-        cam_params = self.full_cam_params(_to_numpy(cam_opt))
-        self.pts3d_ba = _to_numpy(pts3d_ba)
-        self.cameras_ba = [load_camera_from_cam_params(cam_params[i], self.cam_model)
-                           for i in range(self.n_cam)]
+        with span("ba.reconstruct", points=len(self.pts_prev_indices)):
+            with span("ba.reconstruct.to_host"):
+                cam_params = self.full_cam_params(_to_numpy(cam_opt))
+                self.pts3d_ba = _to_numpy(pts3d_ba)
+            with span("ba.reconstruct.cameras"):
+                self.cameras_ba = [load_camera_from_cam_params(cam_params[i], self.cam_model)
+                                   for i in range(self.n_cam)]
+                self.estimated_params = []
+                for i in range(self.n_cam):
+                    est = {}
+                    if "R" in self.cam_params_to_optimize:
+                        est["R"] = cam_params[i, :3]
+                    if "T" in self.cam_params_to_optimize:
+                        est["T"] = cam_params[i, 3:6]
+                    if self.cam_model == "rpc":
+                        est["C"] = cam_params[i, 6:9]
+                    self.estimated_params.append(est)
 
-        self.estimated_params = []
-        for i in range(self.n_cam):
-            est = {}
-            if "R" in self.cam_params_to_optimize:
-                est["R"] = cam_params[i, :3]
-            if "T" in self.cam_params_to_optimize:
-                est["T"] = cam_params[i, 3:6]
-            if self.cam_model == "rpc":
-                est["C"] = cam_params[i, 6:9]
-            self.estimated_params.append(est)
-
-        corrected_pts3d = np.array(pts3d_init, dtype=np.float64, copy=True)
-        corrected_cameras = list(cameras_init)
-        for ba_idx, prev_idx in enumerate(self.pts_prev_indices):
-            corrected_pts3d[prev_idx] = self.pts3d_ba[ba_idx]
-        for ba_idx, prev_idx in enumerate(self.cam_prev_indices):
-            corrected_cameras[prev_idx] = self.cameras_ba[ba_idx]
+            with span("ba.reconstruct.points"):
+                corrected_pts3d = np.array(pts3d_init, dtype=np.float64, copy=True)
+                for ba_idx, prev_idx in enumerate(self.pts_prev_indices):
+                    corrected_pts3d[prev_idx] = self.pts3d_ba[ba_idx]
+            corrected_cameras = list(cameras_init)
+            for ba_idx, prev_idx in enumerate(self.cam_prev_indices):
+                corrected_cameras[prev_idx] = self.cameras_ba[ba_idx]
         return corrected_pts3d, corrected_cameras
 
 

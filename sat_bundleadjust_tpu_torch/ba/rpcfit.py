@@ -40,6 +40,7 @@ from sat_bundleadjust_tpu_torch.models.rpc import (
 )
 from sat_bundleadjust_tpu_torch.ops.project import adjust_pts3d
 from sat_bundleadjust_tpu_torch.utils.polygons import Polygon, convex_hull_polygon
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 MAX_IRLS_ITERS = 20
 IRLS_TOL = 1e-2
@@ -139,28 +140,30 @@ def _irls_coeffs(target_norm, locs_norm, stats=None):
         return torch.sqrt(0.5 * (torch.mean((col_pred - C[..., 0]) ** 2, dim=1)
                                  + torch.mean((row_pred - R[..., 0]) ** 2, dim=1)))
 
-    JR = solve(MR, R)
-    JC = solve(MC, C)
-    err = rmse(JR, JC)
-    delta = err + 1.0
-    it = torch.zeros_like(err, dtype=torch.int64)
-    syncs = 0
-    while True:
-        active = (it < MAX_IRLS_ITERS) & (delta >= IRLS_TOL * 1e-3)
-        syncs += 1
-        if not bool(active.any()):
-            break
-        _, rd = coeffs_from(JR)
-        _, cd = coeffs_from(JC)
-        JR_new = solve(MR, R, 1.0 / apply(rd) ** 2)
-        JC_new = solve(MC, C, 1.0 / apply(cd) ** 2)
-        err_new = rmse(JR_new, JC_new)
-        a = active[:, None]
-        JR = torch.where(a, JR_new, JR)
-        JC = torch.where(a, JC_new, JC)
-        delta = torch.where(active, (err - err_new).abs(), delta)
-        err = torch.where(active, err_new, err)
-        it = it + active.to(it.dtype)
+    with span("rpcfit.irls", cameras=int(C.shape[0])) as fit:
+        JR = solve(MR, R)
+        JC = solve(MC, C)
+        err = rmse(JR, JC)
+        delta = err + 1.0
+        it = torch.zeros_like(err, dtype=torch.int64)
+        syncs = 0
+        while True:
+            active = (it < MAX_IRLS_ITERS) & (delta >= IRLS_TOL * 1e-3)
+            syncs += 1
+            if not bool(active.any()):
+                break
+            _, rd = coeffs_from(JR)
+            _, cd = coeffs_from(JC)
+            JR_new = solve(MR, R, 1.0 / apply(rd) ** 2)
+            JC_new = solve(MC, C, 1.0 / apply(cd) ** 2)
+            err_new = rmse(JR_new, JC_new)
+            a = active[:, None]
+            JR = torch.where(a, JR_new, JR)
+            JC = torch.where(a, JC_new, JC)
+            delta = torch.where(active, (err - err_new).abs(), delta)
+            err = torch.where(active, err_new, err)
+            it = it + active.to(it.dtype)
+        fit.attrs["host_syncs"] = syncs
     if stats is not None:
         stats["irls_iters"] = it.cpu().numpy()
         stats["host_syncs"] = stats.get("host_syncs", 0) + syncs

@@ -12,8 +12,6 @@ forward-mode AD of the per-observation residual (torch.func.jacfwd under
 vmap) in float64, as the JAX package does with jax.jacfwd.
 """
 
-import time
-
 import numpy as np
 import torch
 
@@ -23,6 +21,7 @@ from sat_bundleadjust_tpu_torch.ops import lm as lm_ops
 from sat_bundleadjust_tpu_torch.ops.fastgeo import anchors_from_rpcs
 from sat_bundleadjust_tpu_torch.ops.jacobians import residuals_and_jacobians_rpc, residuals_rpc
 from sat_bundleadjust_tpu_torch.ops.project import affine_from_params, perspective_from_params
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
 def init_optimization_config(config=None):
@@ -157,9 +156,12 @@ class BASolver:
     def __init__(self, p, schur_mode=None, jac_dtype=None, device=None):
         self.p = p
         self.device = resolve_device(device)
-        self.residual_fn, self.jac_fn = make_fns(
-            p, self.device, jac_dtype=torch.float32 if jac_dtype is None else jac_dtype)
-        self.prob, self.mode = build_problem(p, self.device, schur_mode)
+        with span("ba.solver.init"):
+            with span("ba.make_fns"):
+                self.residual_fn, self.jac_fn = make_fns(
+                    p, self.device, jac_dtype=torch.float32 if jac_dtype is None else jac_dtype)
+            with span("ba.build_problem"):
+                self.prob, self.mode = build_problem(p, self.device, schur_mode)
         self._drivers = {}
 
     def driver(self, cfg, graphs=True):
@@ -195,12 +197,12 @@ class BASolver:
         cfg = self.config(ls_params)
         cam0 = torch.as_tensor(self.p.opt_block(), dtype=torch.float64, device=self.device)
         pts0 = torch.as_tensor(self.p.pts3d, dtype=torch.float64, device=self.device)
-        t0 = time.time()
-        cam, pts, info = self.driver(cfg, graphs)(cam0, pts0, cfg.max_iter, cfg.loss,
-                                                  cfg.f_scale)
+        with span("ba.solve", loss=cfg.loss) as wall:
+            cam, pts, info = self.driver(cfg, graphs)(cam0, pts0, cfg.max_iter, cfg.loss,
+                                                      cfg.f_scale)
         err_init = info.pop("err0")
         err_ba = info.pop("err_fin")
-        info["wall_time"] = time.time() - t0
+        info["wall_time"] = wall.seconds
         self.last_info = info
         return (cam0, pts0), (cam, pts), err_init, err_ba, info
 

@@ -38,6 +38,7 @@ def main(argv=None):
     from sat_bundleadjust_tpu_torch.parallel import multihost
     from sat_bundleadjust_tpu_torch.parallel.mesh import world_rank
     from sat_bundleadjust_tpu_torch.timeseries import Scene
+    from sat_bundleadjust_tpu_torch.utils import profiling
     from sat_bundleadjust_tpu_torch.utils.io import load_dict_from_json
 
     # several processes: join the process group (and pin this rank's card)
@@ -49,26 +50,29 @@ def main(argv=None):
         scene.get_timeline_attributes(range(len(scene.timeline)), ["datetime", "n_images", "id"])
         return None
 
-    if args.verbose:
-        scene = Scene(args.config, device=device)
-        scene.run_bundle_adjustment_for_RPC_refinement()
-        return scene
-
-    out_dir = load_dict_from_json(args.config)["output_dir"]
-    os.makedirs(out_dir, exist_ok=True)
-    rank = world_rank()
-    log_path = os.path.join(out_dir, "bundle_adjust.log" if rank == 0
-                            else "bundle_adjust.p{}.log".format(rank))
-    print("Running bundle adjustment; log at {}".format(log_path))
-    stdout, stderr = sys.stdout, sys.stderr
-    with open(log_path, "w") as log_file:
-        sys.stdout = sys.stderr = log_file
-        try:
+    # the whole run is one span, and with SATBA_PROFILE_DIR set one Chrome
+    # trace of the program's spans and the card's work
+    with profiling.device_trace("cli"), profiling.span("cli.main"):
+        if args.verbose:
             scene = Scene(args.config, device=device)
             scene.run_bundle_adjustment_for_RPC_refinement()
-        finally:
-            sys.stdout, sys.stderr = stdout, stderr
-    return scene
+            return scene
+
+        out_dir = load_dict_from_json(args.config)["output_dir"]
+        os.makedirs(out_dir, exist_ok=True)
+        rank = world_rank()
+        log_path = os.path.join(out_dir, "bundle_adjust.log" if rank == 0
+                                else "bundle_adjust.p{}.log".format(rank))
+        print("Running bundle adjustment; log at {}".format(log_path))
+        stdout, stderr = sys.stdout, sys.stderr
+        with open(log_path, "w") as log_file:
+            sys.stdout = sys.stderr = log_file
+            try:
+                scene = Scene(args.config, device=device)
+                scene.run_bundle_adjustment_for_RPC_refinement()
+            finally:
+                sys.stdout, sys.stderr = stdout, stderr
+        return scene
 
 
 if __name__ == "__main__":

@@ -26,7 +26,6 @@ turns into a rejected step.
 
 import math
 import os
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +35,7 @@ from sat_bundleadjust_tpu_torch.ops import launches
 from sat_bundleadjust_tpu_torch.ops import smallmat as sm
 from sat_bundleadjust_tpu_torch.ops.robust import loss_cost, loss_scale
 from sat_bundleadjust_tpu_torch.ops.schur_matvec import SchurOperator, schur_wz_plain
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 MATVECS = ("auto", "plain", "aos")
 
@@ -541,12 +541,14 @@ def run_cg(block, status, k, stats, read_first=False):
     ran, active = 0, True
     if read_first:
         stats["host_syncs"] += 1
-        it, active = status.tolist()
+        with span("lm.cg_read"):
+            it, active = status.tolist()
     while active:
         block()
         ran += k
         stats["host_syncs"] += 1
-        it, active = status.tolist()
+        with span("lm.cg_read"):
+            it, active = status.tolist()
     stats["cg_iterations"] += it
     stats["cg_masked"] += ran - it
     stats["cg_steps"].append(it)
@@ -900,16 +902,18 @@ class _Iteration:
         while n_iter < max_iter:
             if n_iter:
                 stats["host_syncs"] += 1
-                if bool(self.done):
+                with span("lm.stop_read"):
+                    done = bool(self.done)
+                if done:
                     break
             if self.captures and self.graphs is None:
                 if not n_iter and self.kind not in _WARMED:
-                    self.warm_up(stats)
+                    with span("lm.warm_up"):
+                        self.warm_up(stats)
                     n_iter += 1
                     continue
-                t0 = time.perf_counter()
-                self.capture(stats)
-                stats["capture_s"] += time.perf_counter() - t0
+                with span("lm.capture", stats, "capture_s"):
+                    self.capture(stats)
             self.one(stats)
             n_iter += 1
         return n_iter
@@ -938,24 +942,30 @@ def build_solve(residual_fn, jac_fn, n_cam, n_pts, prob, cfg, graphs=True):
 
     def run(cam, pts, max_iter, loss, f_scale, stats=None):
         stats = new_stats() if stats is None else stats
-        r0 = residual_fn(cam, pts)
-        cost0 = loss_cost(loss, r0, f_scale)
-        # "exactly solved" floor: 1e-14 px^2 per observation
-        cost_floor = torch.clamp(1e-15 * torch.clamp(cost0, min=1.0), min=1e-14 * n_obs)
-        key = (loss, float(f_scale))
-        if key not in steps:
-            steps[key] = _Iteration(residual_fn, jac_fn, n_cam, n_pts, prob, cfg, loss, f_scale,
-                                    cam, pts, graphs and cam.device.type == "cuda")
-        step = steps[key]
-        step.fill(cam, pts, cost0, cost_floor)
-        n_iter = step.iterate(max_iter, stats)
-        cam, pts = step.cam.clone(), step.pts.clone()
-        r_fin = residual_fn(cam, pts)
-        w = prob.weights[:, None]
-        errs = torch.stack([torch.linalg.norm(r0 / w, dim=1),
-                            torch.linalg.norm(r_fin / w, dim=1)]).to(torch.float32)
-        scalars = torch.stack([step.lam, step.cost, cost0]).cpu().numpy()
-        errs = errs.cpu().numpy()
+        counted = ("host_syncs", "cg_iterations", "cg_masked", "matvecs", "graph_replays")
+        before = {k: stats[k] for k in counted}
+        with span("lm.solve", loss=loss) as solve_span:
+            r0 = residual_fn(cam, pts)
+            cost0 = loss_cost(loss, r0, f_scale)
+            # "exactly solved" floor: 1e-14 px^2 per observation
+            cost_floor = torch.clamp(1e-15 * torch.clamp(cost0, min=1.0), min=1e-14 * n_obs)
+            key = (loss, float(f_scale))
+            if key not in steps:
+                steps[key] = _Iteration(residual_fn, jac_fn, n_cam, n_pts, prob, cfg, loss,
+                                        f_scale, cam, pts, graphs and cam.device.type == "cuda")
+            step = steps[key]
+            step.fill(cam, pts, cost0, cost_floor)
+            n_iter = step.iterate(max_iter, stats)
+            cam, pts = step.cam.clone(), step.pts.clone()
+            r_fin = residual_fn(cam, pts)
+            w = prob.weights[:, None]
+            errs = torch.stack([torch.linalg.norm(r0 / w, dim=1),
+                                torch.linalg.norm(r_fin / w, dim=1)]).to(torch.float32)
+            with span("lm.result_read"):
+                scalars = torch.stack([step.lam, step.cost, cost0]).cpu().numpy()
+                errs = errs.cpu().numpy()
+            solve_span.attrs.update({k: stats[k] - before[k] for k in counted},
+                                    iterations=n_iter)
         info = {
             "cost0": float(scalars[2]),
             "cost": float(scalars[1]),

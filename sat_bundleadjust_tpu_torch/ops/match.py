@@ -14,13 +14,12 @@ Counterpart of `sat_bundleadjust_tpu/ops/match.py`, with its dispatch:
   for the same backend.
 """
 
-import time
-
 import numpy as np
 import torch
 
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.ops import nn2_match
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 EPIPOLAR_THR = 20.0  # px
 BIG = 1e12
@@ -325,24 +324,23 @@ def match_pairs_2nn_staged(staged, pair_frames, pair_idx, pair_F, rel_thr=0.6,
     B = len(pair_frames)
     if B == 0:
         return []
-    t0 = time.time()
     results = [None] * B
     pending = []
-    for chunk, n1, n2 in staged_chunks(pair_idx, max_bytes):
-        arrays = staged_chunk_arrays(chunk, n1, n2, pair_frames, pair_idx, pair_F, epipolar_thr)
-        packed = nn2_match.nn2_batched_i8(*staged_chunk_operands(staged, arrays))
-        pending.append((chunk, packed, arrays[2]))
-    t1 = time.time()
-    for chunk, packed, mi in pending:
-        packed = packed.cpu().numpy()
-        for b, q in enumerate(chunk):
-            ki = len(pair_idx[q][0])
-            d1, d2, nn = packed[b, 0, :ki], packed[b, 1, :ki], packed[b, 2, :ki]
-            accepted = _accept(d1, d2, method, rel_thr, abs_thr) & (d1 < 5e11) & (mi[b, :ki] > 0)
-            results[q] = (nn.astype(np.int64), accepted)
-    if timing is not None:
-        timing["nn_enqueue_s"] = timing.get("nn_enqueue_s", 0.0) + t1 - t0
-        timing["nn_drain_s"] = timing.get("nn_drain_s", 0.0) + time.time() - t1
+    with span("nn2.enqueue", timing, "nn_enqueue_s"):
+        for chunk, n1, n2 in staged_chunks(pair_idx, max_bytes):
+            arrays = staged_chunk_arrays(chunk, n1, n2, pair_frames, pair_idx, pair_F,
+                                         epipolar_thr)
+            packed = nn2_match.nn2_batched_i8(*staged_chunk_operands(staged, arrays))
+            pending.append((chunk, packed, arrays[2]))
+    with span("nn2.drain", timing, "nn_drain_s", chunks=len(pending)):
+        for chunk, packed, mi in pending:
+            packed = packed.cpu().numpy()
+            for b, q in enumerate(chunk):
+                ki = len(pair_idx[q][0])
+                d1, d2, nn = packed[b, 0, :ki], packed[b, 1, :ki], packed[b, 2, :ki]
+                accepted = (_accept(d1, d2, method, rel_thr, abs_thr) & (d1 < 5e11)
+                            & (mi[b, :ki] > 0))
+                results[q] = (nn.astype(np.int64), accepted)
     return results
 
 

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 # IPOL anatomy parameters
 DELTA_MIN = 0.5
@@ -744,12 +745,21 @@ def detect_sift_batch(images, thresh_dog=0.0133, n_octaves=8, n_scales=3,
                 batch_chunk=chunk, device=dev,
             ))
         return out
-    im = _normalized_stack(images, dev)
+    with span("sift.batch", frames=len(images)):
+        return _detect_batch(images, thresh_dog, n_octaves, n_scales, max_kp, max_kp_per_octave,
+                             dev)
+
+
+def _detect_batch(images, thresh_dog, n_octaves, n_scales, max_kp, max_kp_per_octave, dev):
+    """detect_sift_batch on one batch that the device holds at once."""
+    with span("sift.upload"):
+        im = _normalized_stack(images, dev)
 
     with torch.no_grad():
-        thresh = torch.tensor(thresh_dog, dtype=_F32, device=dev)
-        octs, counts = _pyramid_extrema(im, thresh, n_octaves, n_scales, max_kp_per_octave)
-        counts = counts.max(dim=0).values.cpu().numpy()  # the one host sync between phases
+        with span("sift.pyramid"):
+            thresh = torch.tensor(thresh_dog, dtype=_F32, device=dev)
+            octs, counts = _pyramid_extrema(im, thresh, n_octaves, n_scales, max_kp_per_octave)
+            counts = counts.max(dim=0).values.cpu().numpy()  # the one host sync between phases
         h0, w0 = int(im.shape[1]), int(im.shape[2])
         slots = _octave_slots(h0, w0, n_octaves, max_kp_per_octave)
         buckets = tuple(_next_bucket(int(c), s) for c, s in zip(counts, slots))
@@ -758,16 +768,19 @@ def detect_sift_batch(images, thresh_dog=0.0133, n_octaves=8, n_scales=3,
         fetch_k = None
         if max_kp is not None and max_kp < 2 * sum(buckets):
             fetch_k = int(max_kp)
-        packed = _describe_buckets(octs, buckets, n_scales, fetch_k=fetch_k)
+        with span("sift.describe"):
+            packed = _describe_buckets(octs, buckets, n_scales, fetch_k=fetch_k)
     out = []
-    for geom, desc, valid in packed:
-        v = valid.cpu().numpy()
-        feats = np.concatenate([geom.cpu().numpy()[v],
-                                desc.to(torch.uint8).cpu().numpy()[v].astype(np.float32)], axis=1)
-        if feats.shape[0] == 0:
-            out.append(np.zeros((0, 132)))
-            continue
-        if max_kp is not None and feats.shape[0] > max_kp:
-            feats = feats[np.argsort(-feats[:, 2], kind="stable")[:max_kp]]
-        out.append(feats)
+    with span("sift.to_host"):
+        for geom, desc, valid in packed:
+            v = valid.cpu().numpy()
+            feats = np.concatenate([geom.cpu().numpy()[v],
+                                    desc.to(torch.uint8).cpu().numpy()[v].astype(np.float32)],
+                                   axis=1)
+            if feats.shape[0] == 0:
+                out.append(np.zeros((0, 132)))
+                continue
+            if max_kp is not None and feats.shape[0] > max_kp:
+                feats = feats[np.argsort(-feats[:, 2], kind="stable")[:max_kp]]
+            out.append(feats)
     return out

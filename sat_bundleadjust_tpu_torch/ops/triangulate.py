@@ -17,6 +17,7 @@ import torch
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.models import ellipsoid
 from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, rpc_localization, rpc_projection, stack_rpcs
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 RPCH_ITERS = 24
 RPCH_HSTEP = 1.0
@@ -34,26 +35,31 @@ def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b):
     """Triangulate matched pixels (..., 2) between RPC cameras a and b
     (fields batched like the points). Returns pts3d (..., 3) ECEF and the
     residual distance in image b (px). Stops early once every duo has
-    converged (one host sync per step)."""
+    converged (one host sync per step: the `triangulate.rpc` span's
+    `host_reads`)."""
     xa, ya = pts_a[..., 0], pts_a[..., 1]
     xb, yb = pts_b[..., 0], pts_b[..., 1]
     h = torch.zeros_like(xa)
     err = torch.zeros_like(xa)
     done = torch.zeros_like(xa, dtype=torch.bool)
-    for _ in range(RPCH_ITERS):
-        if bool(done.all()):
-            break
-        px, py = _pair_correspondence(rpc_a, rpc_b, xa, ya, h)
-        qx, qy = _pair_correspondence(rpc_a, rpc_b, xa, ya, h + RPCH_HSTEP)
-        ax, ay = qx - px, qy - py
-        bx, by = xb - px, yb - py
-        a2 = ax * ax + ay * ay
-        lam = (ax * bx + ay * by) / torch.where(a2 == 0, torch.ones_like(a2), a2)
-        zx, zy = px + lam * ax, py + lam * ay
-        new_err = torch.hypot(zx - xb, zy - yb)
-        h = torch.where(done, h, h + lam * RPCH_HSTEP)
-        err = torch.where(done, err, new_err)
-        done = done | (lam.abs() < RPCH_LAMBDA_STOP)
+    with span("triangulate.rpc", duos=int(xa.numel())) as loop:
+        reads = 0
+        for _ in range(RPCH_ITERS):
+            reads += 1
+            if bool(done.all()):
+                break
+            px, py = _pair_correspondence(rpc_a, rpc_b, xa, ya, h)
+            qx, qy = _pair_correspondence(rpc_a, rpc_b, xa, ya, h + RPCH_HSTEP)
+            ax, ay = qx - px, qy - py
+            bx, by = xb - px, yb - py
+            a2 = ax * ax + ay * ay
+            lam = (ax * bx + ay * by) / torch.where(a2 == 0, torch.ones_like(a2), a2)
+            zx, zy = px + lam * ax, py + lam * ay
+            new_err = torch.hypot(zx - xb, zy - yb)
+            h = torch.where(done, h, h + lam * RPCH_HSTEP)
+            err = torch.where(done, err, new_err)
+            done = done | (lam.abs() < RPCH_LAMBDA_STOP)
+        loop.attrs["host_reads"] = reads
     lon, lat = rpc_localization(rpc_a, xa, ya, h)
     return ellipsoid.latlon_to_ecef_arr(lat, lon, h), err
 
@@ -108,7 +114,8 @@ def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, devic
     cameras: RPCModels (cam_model "rpc") or 3x4 matrices."""
     dev = resolve_device(device)
     n_pts = C.shape[1]
-    batch = build_triangulation_batch(C, pairs_to_triangulate)
+    with span("triangulate.batch"):
+        batch = build_triangulation_batch(C, pairs_to_triangulate)
     if batch is None:
         return np.zeros((n_pts, 3))
     if cam_model == "rpc":
@@ -119,18 +126,19 @@ def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, devic
     B = int(batch["track"].shape[0])
     chunk = int(os.environ.get("SATBA_TRIANG_CHUNK", CHUNK))
     sums = np.zeros((n_pts, 3))
-    for s in range(0, B, chunk):
-        sl = slice(s, min(s + chunk, B))
-        cam_a = torch.as_tensor(batch["cam_a"][sl], dtype=torch.int64, device=dev)
-        cam_b = torch.as_tensor(batch["cam_b"][sl], dtype=torch.int64, device=dev)
-        pts_a = torch.as_tensor(batch["pts_a"][sl], dtype=torch.float64, device=dev)
-        pts_b = torch.as_tensor(batch["pts_b"][sl], dtype=torch.float64, device=dev)
-        if cam_model == "rpc":
-            pts3d, _ = rpc_triangulation(index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b),
-                                         pts_a, pts_b)
-        else:
-            pts3d = linear_triangulation(mats[cam_a], mats[cam_b], pts_a, pts_b)
-        # deterministic host-side segment sum, in duo order
-        np.add.at(sums, batch["track"][sl], pts3d.cpu().numpy())
+    with span("triangulate.loop", duos=B, chunks=-(-B // chunk)):
+        for s in range(0, B, chunk):
+            sl = slice(s, min(s + chunk, B))
+            cam_a = torch.as_tensor(batch["cam_a"][sl], dtype=torch.int64, device=dev)
+            cam_b = torch.as_tensor(batch["cam_b"][sl], dtype=torch.int64, device=dev)
+            pts_a = torch.as_tensor(batch["pts_a"][sl], dtype=torch.float64, device=dev)
+            pts_b = torch.as_tensor(batch["pts_b"][sl], dtype=torch.float64, device=dev)
+            if cam_model == "rpc":
+                pts3d, _ = rpc_triangulation(index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b),
+                                             pts_a, pts_b)
+            else:
+                pts3d = linear_triangulation(mats[cam_a], mats[cam_b], pts_a, pts_b)
+            # deterministic host-side segment sum, in duo order
+            np.add.at(sums, batch["track"][sl], pts3d.cpu().numpy())
     counts = np.bincount(batch["track"], minlength=n_pts).astype(np.float64)
     return sums / np.maximum(counts, 1.0)[:, None]

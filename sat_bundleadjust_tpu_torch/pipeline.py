@@ -24,7 +24,6 @@ and `refit_stats` the refit's.
 import copy
 import os
 import shutil
-import timeit
 
 import numpy as np
 
@@ -45,6 +44,7 @@ from sat_bundleadjust_tpu_torch.utils import geo as geo_utils
 from sat_bundleadjust_tpu_torch.utils import io as loader
 from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
 from sat_bundleadjust_tpu_torch.utils.io import flush_print
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
 class Error(Exception):
@@ -102,13 +102,12 @@ class BundleAdjustmentPipeline:
         else:
             self.predefined_aoi = True
 
-        t0 = timeit.default_timer()
-        if "cameras" in ba_data:
-            self.cameras = list(ba_data["cameras"])
-        else:
-            self.set_cameras()
-        self.set_camera_centers()
-        self.timing["cameras_s"] = timeit.default_timer() - t0
+        with span("pipeline.cameras", self.timing, "cameras_s"):
+            if "cameras" in ba_data:
+                self.cameras = list(ba_data["cameras"])
+            else:
+                self.set_cameras()
+            self.set_camera_centers()
 
         flush_print("Bundle Adjustment Pipeline created")
         flush_print("-------------------------------------------------------------")
@@ -151,28 +150,27 @@ class BundleAdjustmentPipeline:
     def set_footprints(self, alt_getter=None):
         """Footprints at an altitude per image: alt_getter(image), else the
         clamped RPC altitude offset."""
-        t0 = timeit.default_timer()
         flush_print("Getting image footprints...")
-        for im in self.images:
-            h = alt_getter(im) if alt_getter is not None else default_altitude(im.rpc)
-            im.set_footprint(alt=h)
-        self.timing["footprints_s"] = timeit.default_timer() - t0
+        with span("pipeline.footprints", self.timing, "footprints_s"):
+            for im in self.images:
+                h = alt_getter(im) if alt_getter is not None else default_altitude(im.rpc)
+                im.set_footprint(alt=h)
         flush_print("...done in {:.2f} seconds".format(self.timing["footprints_s"]))
 
     def set_camera_centers(self):
         """From a perspective fit of each RPC, or, for perspective cameras,
         from the cameras themselves."""
-        t0 = timeit.default_timer()
         flush_print("Estimating camera positions...")
-        if self.cam_model != "perspective":
-            for im in self.images:
-                if im.center is None:
-                    im.set_camera_center()
-        else:
-            for im, cam in zip(self.images, self.cameras):
-                _, _, _, center = cam_utils.decompose_perspective_camera(cam)
-                im.set_camera_center(center=center)
-        flush_print("...done in {:.2f} seconds".format(timeit.default_timer() - t0))
+        with span("pipeline.camera_centers") as wall:
+            if self.cam_model != "perspective":
+                for im in self.images:
+                    if im.center is None:
+                        im.set_camera_center()
+            else:
+                for im, cam in zip(self.images, self.cameras):
+                    _, _, _, center = cam_utils.decompose_perspective_camera(cam)
+                    im.set_camera_center(center=center)
+        flush_print("...done in {:.2f} seconds".format(wall.seconds))
 
     def set_cameras(self):
         """The RPCs; or their affine approximations at the AOI centre (at
@@ -258,12 +256,13 @@ class BundleAdjustmentPipeline:
             C_fixed = self.C[: self.n_adj * 2, : self.n_pts_fix]
             self.pts3d[: self.n_pts_fix, :] = init_pts3d(
                 C_fixed, self.cameras, self.cam_model, self.pairs_to_triangulate, device=self.device)
-        t0 = timeit.default_timer()
         flush_print("Initializing {} 3d point coords to optimize...".format(n_pts_opt))
-        C_opt = self.C[:, -n_pts_opt:]
-        self.pts3d[-n_pts_opt:, :] = init_pts3d(
-            C_opt, self.cameras, self.cam_model, self.pairs_to_triangulate, device=self.device)
-        flush_print("...done in {:.2f} seconds".format(timeit.default_timer() - t0))
+        with span("pipeline.pts3d_opt") as wall:
+            C_opt = self.C[:, -n_pts_opt:]
+            self.pts3d[-n_pts_opt:, :] = init_pts3d(
+                C_opt, self.cameras, self.cam_model, self.pairs_to_triangulate,
+                device=self.device)
+        flush_print("...done in {:.2f} seconds".format(wall.seconds))
 
     # ------------------------------------------------------------------
     # solver rounds
@@ -331,12 +330,12 @@ class BundleAdjustmentPipeline:
         self.ba_iters += iters
 
     def clean_outlier_observations(self):
-        t0 = timeit.default_timer()
-        self.ba_params = ba_outliers.rm_outliers(
-            self.ba_e, self.ba_params, verbose=True,
-            reference_rounding=self.outlier_thr_rounding, device=self.device)
+        with span("pipeline.outliers", self.timing, "outliers_s") as wall:
+            self.ba_params = ba_outliers.rm_outliers(
+                self.ba_e, self.ba_params, verbose=True,
+                reference_rounding=self.outlier_thr_rounding, device=self.device)
         flush_print("Removal of outliers based on reprojection error took {:.2f} seconds".format(
-            timeit.default_timer() - t0))
+            wall.seconds))
 
     def remove_all_obs_with_reprojection_error_higher_than(self, thr):
         print("\nAll observations with initial reprojection error higher than {} will be rejected !"
@@ -491,15 +490,14 @@ class BundleAdjustmentPipeline:
         new_indices = list(range(self.n_adj, self.n_adj + self.n_new))
         pts_seen = [self.ba_params.pts3d_ba[~np.isnan(self.ba_params.C[2 * cam_prev.index(c)])]
                     for c in new_indices]
-        t0 = timeit.default_timer()
         self.refit_stats = {}
-        results = ba_rpcfit.fit_rpcs_batched(
-            [np.asarray(self.corrected_cameras[c]).reshape(9) for c in new_indices],
-            self.global_transform,
-            [self.cameras[c] for c in new_indices],
-            [self.images[c].offset for c in new_indices],
-            pts_seen, device=self.device, stats=self.refit_stats)
-        self.timing["refit_s"] = timeit.default_timer() - t0
+        with span("pipeline.refit", self.timing, "refit_s"):
+            results = ba_rpcfit.fit_rpcs_batched(
+                [np.asarray(self.corrected_cameras[c]).reshape(9) for c in new_indices],
+                self.global_transform,
+                [self.cameras[c] for c in new_indices],
+                [self.images[c].offset for c in new_indices],
+                pts_seen, device=self.device, stats=self.refit_stats)
         self.refit_stats["fit_error_max"] = [float(err.max()) for _, err, _ in results]
         self.refit_stats["fit_error_median"] = [float(np.median(err)) for _, err, _ in results]
         self.refit_stats["margins"] = [margin for _, _, margin in results]
@@ -510,18 +508,18 @@ class BundleAdjustmentPipeline:
         flush_print("Bundle adjusted rpcs written at {}\n".format(out_dir))
 
     def _save_rpcs_of_matrices(self, fnames):
-        t0 = timeit.default_timer()
         results = []
-        for cam_idx, (fn, cam) in enumerate(zip(fnames, self.corrected_cameras)):
-            pts_seen = self.ba_params.pts3d_ba[~np.isnan(self.ba_params.C[2 * cam_idx])]
-            rpc_calib, err, margin = ba_rpcfit.fit_rpc_from_projection_matrix(
-                cam, self.global_transform, self.images[cam_idx].rpc, self.images[cam_idx].offset,
-                pts_seen)
-            flush_print("cam {:2} - RPC fit error per obs [1e-4 px] max / med: {:.2f} / {:.2f} (margin {})"
-                        .format(cam_idx, 1e4 * err.max(), 1e4 * np.median(err), margin))
-            write_rpc_file(rpc_calib, fn)
-            results.append((err, margin))
-        self.timing["refit_s"] = timeit.default_timer() - t0
+        with span("pipeline.refit", self.timing, "refit_s"):
+            for cam_idx, (fn, cam) in enumerate(zip(fnames, self.corrected_cameras)):
+                pts_seen = self.ba_params.pts3d_ba[~np.isnan(self.ba_params.C[2 * cam_idx])]
+                rpc_calib, err, margin = ba_rpcfit.fit_rpc_from_projection_matrix(
+                    cam, self.global_transform, self.images[cam_idx].rpc,
+                    self.images[cam_idx].offset, pts_seen)
+                flush_print("cam {:2} - RPC fit error per obs [1e-4 px] max / med: {:.2f} / {:.2f} "
+                            "(margin {})".format(cam_idx, 1e4 * err.max(), 1e4 * np.median(err),
+                                                 margin))
+                write_rpc_file(rpc_calib, fn)
+                results.append((err, margin))
         self.refit_stats = {
             "fit_error_max": [float(err.max()) for err, _ in results],
             "fit_error_median": [float(np.median(err)) for err, _ in results],
@@ -586,14 +584,15 @@ class BundleAdjustmentPipeline:
 
     def run(self):
         """The full chain; the seconds of each step go to `timing`."""
-        clock = timeit.default_timer
-        pipeline_start = clock()
+        with span("pipeline.run") as wall:
+            self._run()
+        flush_print("\nBundle adjustment pipeline completed in {}\n".format(
+            loader.get_time_in_hours_mins_secs(wall.seconds)))
 
+    def _run(self):
         def timed(key, fn, *args):
-            t0 = clock()
-            out = fn(*args)
-            self.timing[key] = clock() - t0
-            return out
+            with span("pipeline." + key[:-2], self.timing, key):
+                return fn(*args)
 
         timed("tracks_s", self.compute_feature_tracks)
         timed("triangulation_s", self.initialize_pts3d)
@@ -608,28 +607,26 @@ class BundleAdjustmentPipeline:
         if self.max_init_reproj_error is not None:
             self.remove_all_obs_with_reprojection_error_higher_than(thr=self.max_init_reproj_error)
 
-        t0 = clock()
-        self.check_connectivity_graph(min_matches=5)
-        if self.connectivity_graph_looks_good:
-            self.select_best_tracks(K=self.tracks_config["FT_K"], priority=self.tracks_config["FT_priority"])
+        with span("pipeline.selection", self.timing, "selection_s"):
             self.check_connectivity_graph(min_matches=5)
-        ft_ranking.print_quick_camera_weights([im.geotiff_path for im in self.images], self.C)
-
-        if self.fix_ref_cam:
-            self.fix_reference_camera()
-        self.timing["selection_s"] = clock() - t0
-        t0 = clock()
-        timed("parameters_s", self.define_ba_parameters, False, True)
-        if self.clean_outliers:
-            timed("soft_l1_s", self.run_ba_softL1)
-            timed("outliers_s", self.clean_outlier_observations)
-        timed("l2_s", self.run_ba_L2)
-        cam_sol, pts_sol = self.ba_sol
-        self.corrected_pts3d, self.corrected_cameras = self.ba_params.reconstruct_vars(
-            cam_sol, pts_sol, self.pts3d, self.cameras)
-        optimization_time = loader.get_time_in_hours_mins_secs(clock() - t0)
+            if self.connectivity_graph_looks_good:
+                self.select_best_tracks(K=self.tracks_config["FT_K"],
+                                        priority=self.tracks_config["FT_priority"])
+                self.check_connectivity_graph(min_matches=5)
+            ft_ranking.print_quick_camera_weights([im.geotiff_path for im in self.images], self.C)
+            if self.fix_ref_cam:
+                self.fix_reference_camera()
+        with span("pipeline.optimization") as optimization:
+            timed("parameters_s", self.define_ba_parameters, False, True)
+            if self.clean_outliers:
+                timed("soft_l1_s", self.run_ba_softL1)
+                self.clean_outlier_observations()
+            timed("l2_s", self.run_ba_L2)
+            cam_sol, pts_sol = self.ba_sol
+            self.corrected_pts3d, self.corrected_cameras = self.ba_params.reconstruct_vars(
+                cam_sol, pts_sol, self.pts3d, self.cameras)
         flush_print("Optimization problem solved in {} ({} iterations)\n".format(
-            optimization_time, self.ba_iters))
+            loader.get_time_in_hours_mins_secs(optimization.seconds), self.ba_iters))
 
         if self.n_adj == 0:
             self.correct_drift_object_space()
@@ -639,22 +636,18 @@ class BundleAdjustmentPipeline:
         # the outputs: one writer; the barrier makes them visible to every
         # rank (the sequential mode's next date reads the adjusted RPCs)
         if multihost.is_main_process():
-            t0 = clock()
-            self.save_corrected_points()
-            self.save_estimated_params()
-            self.save_corrected_cameras()
-            self.timing["writes_s"] = clock() - t0 - self.timing["refit_s"]
+            with span("pipeline.outputs") as outputs:
+                self.save_corrected_points()
+                self.save_estimated_params()
+                self.save_corrected_cameras()
+            self.timing["writes_s"] = outputs.seconds - self.timing["refit_s"]
 
             if self.save_figures:
-                t0 = clock()
-                loader.save_geojson(os.path.join(self.out_dir, "AOI.json"), self.aoi)
-                self.save_feature_tracks()
-                self.save_debug_figures()
-                self.timing["figures_s"] = clock() - t0
+                with span("pipeline.figures", self.timing, "figures_s"):
+                    loader.save_geojson(os.path.join(self.out_dir, "AOI.json"), self.aoi)
+                    self.save_feature_tracks()
+                    self.save_debug_figures()
         multihost.barrier("pipeline_outputs")
-
-        pipeline_time = loader.get_time_in_hours_mins_secs(clock() - pipeline_start)
-        flush_print("\nBundle adjustment pipeline completed in {}\n".format(pipeline_time))
 
 
 def default_altitude(rpc):

@@ -15,7 +15,6 @@ import glob
 import os
 import shutil
 import sys
-import timeit
 
 import numpy as np
 
@@ -27,6 +26,7 @@ from sat_bundleadjust_tpu_torch.pipeline import BundleAdjustmentPipeline
 from sat_bundleadjust_tpu_torch.utils import io as loader
 from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
 from sat_bundleadjust_tpu_torch.utils.io import flush_print
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 class Error(Exception):
     pass
@@ -80,7 +80,12 @@ class Scene:
         package's Scene (geotiff_dir, rpc_dir, rpc_src, output_dir,
         ba_method, ... and the FT_* keys). The run goes on `device`
         (default: the card). `timing` holds the scene load's seconds."""
-        t0 = timeit.default_timer()
+        self.timing = {}
+        with span("scene.load", self.timing, "scene_load_s"):
+            self._load(scene_config, device)
+        print("Scene loaded in {:.2f} seconds".format(self.timing["scene_load_s"]))
+
+    def _load(self, scene_config, device):
         self.device = resolve_device(device)
         args = loader.load_dict_from_json(scene_config) if isinstance(scene_config, str) else dict(scene_config)
 
@@ -138,8 +143,6 @@ class Scene:
         end_date = self.timeline[-1]["datetime"].date()
         print("Number of acquisition dates: {} (from {} to {})".format(len(self.timeline), start_date, end_date))
         print("Number of images: {}".format(int(np.sum([d["n_images"] for d in self.timeline]))))
-        self.timing = {"scene_load_s": timeit.default_timer() - t0}
-        print("Scene loaded in {:.2f} seconds".format(self.timing["scene_load_s"]))
 
     # ------------------------------------------------------------------
 
@@ -256,7 +259,15 @@ class Scene:
     # ------------------------------------------------------------------
 
     def bundle_adjust(self):
-        t0 = timeit.default_timer()
+        with span("scene.bundle_adjust") as wall:
+            self._bundle_adjust()
+        n_tracks = self.ba_pipeline.ba_params.pts3d_ba.shape[0]
+        ba_e = float(np.mean(self.ba_pipeline.ba_e))
+        init_e = float(np.mean(self.ba_pipeline.init_e))
+        return (wall.seconds, self.ba_pipeline.feature_tracks_running_time, n_tracks, ba_e,
+                init_e)
+
+    def _bundle_adjust(self):
         extra = {
             "cam_model": self.cam_model,
             "n_adj": self.n_adj,
@@ -273,12 +284,6 @@ class Scene:
         self.ba_pipeline = BundleAdjustmentPipeline(self.ba_data, self.tracks_config, extra,
                                                     device=self.device)
         self.ba_pipeline.run()
-
-        n_tracks = self.ba_pipeline.ba_params.pts3d_ba.shape[0]
-        elapsed = timeit.default_timer() - t0
-        ba_e = float(np.mean(self.ba_pipeline.ba_e))
-        init_e = float(np.mean(self.ba_pipeline.init_e))
-        return elapsed, self.ba_pipeline.feature_tracks_running_time, n_tracks, ba_e, init_e
 
     def rm_tmp_files_after_ba(self):
         if multihost.is_main_process():

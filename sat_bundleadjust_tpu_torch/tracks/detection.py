@@ -18,7 +18,6 @@ keypoints through the features/ cache of the shared output directory.
 """
 
 import os
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -28,6 +27,7 @@ from sat_bundleadjust_tpu_torch.parallel import multihost
 from sat_bundleadjust_tpu_torch.parallel.mesh import world_size
 from sat_bundleadjust_tpu_torch.utils import io as loader
 from sat_bundleadjust_tpu_torch.utils.io import flush_print, get_id
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
 def _top_k_by_scale(features, max_kp):
@@ -130,37 +130,40 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
         mask = None if mask_paths is None else np.load(mask_paths[i])
         pending.append((i, path, offset_i, mask))
 
-    t0 = time.time()
-    if backend == "opencv":
-        def load_and_detect(item):
-            i, path, offset_i, mask = item
-            image = loader.load_image(path, offset=offset_i, equalize=True)
-            return i, _top_k_by_scale(detect_opencv(image, mask), max_kp)
+    with span("detection.detector", timing, "detector_s"):
+        if backend == "opencv":
+            def load_and_detect(item):
+                i, path, offset_i, mask = item
+                with span("detection.load", frame=i):
+                    image = loader.load_image(path, offset=offset_i, equalize=True)
+                with span("detection.opencv", frame=i):
+                    return i, _top_k_by_scale(detect_opencv(image, mask), max_kp)
 
-        n_proc = int(config.get("FT_n_proc", 1) or 1)
-        if n_proc > 1 and len(pending) > 1:
-            with ThreadPoolExecutor(max_workers=n_proc) as pool:
-                results = list(pool.map(load_and_detect, pending))
+            n_proc = int(config.get("FT_n_proc", 1) or 1)
+            if n_proc > 1 and len(pending) > 1:
+                with ThreadPoolExecutor(max_workers=n_proc) as pool:
+                    results = list(pool.map(load_and_detect, pending))
+            else:
+                results = [load_and_detect(item) for item in pending]
+            for i, feats in results:
+                resolved[i] = feats
         else:
-            results = [load_and_detect(item) for item in pending]
-        for i, feats in results:
-            resolved[i] = feats
-    else:
-        # same-shape images go through the pyramid together
-        by_shape = {}
-        for i, path, offset_i, mask in pending:
-            image = loader.load_image(path, offset=offset_i, equalize=False)
-            by_shape.setdefault(np.asarray(image).shape, []).append((i, image, mask))
-        thresh = float(config.get("FT_thresh_dog", 0.0133))
-        for group in by_shape.values():
-            feats_list = detect_sift_batch([np.asarray(im, dtype=np.float32) for _, im, _ in group],
-                                           thresh_dog=thresh, max_kp=max_kp, device=dev)
-            for (i, _, mask), feats in zip(group, feats_list):
-                if mask is not None and feats.shape[0] > 0:
-                    feats = _apply_mask(feats, mask)
-                resolved[i] = _top_k_by_scale(feats, max_kp)
-    if timing is not None:
-        timing["detector_s"] = time.time() - t0
+            # same-shape images go through the pyramid together
+            by_shape = {}
+            for i, path, offset_i, mask in pending:
+                with span("detection.load", frame=i):
+                    image = loader.load_image(path, offset=offset_i, equalize=False)
+                by_shape.setdefault(np.asarray(image).shape, []).append((i, image, mask))
+            thresh = float(config.get("FT_thresh_dog", 0.0133))
+            for group in by_shape.values():
+                feats_list = detect_sift_batch(
+                    [np.asarray(im, dtype=np.float32) for _, im, _ in group], thresh_dog=thresh,
+                    max_kp=max_kp, device=dev)
+                with span("detection.mask_topk", frames=len(group)):
+                    for (i, _, mask), feats in zip(group, feats_list):
+                        if mask is not None and feats.shape[0] > 0:
+                            feats = _apply_mask(feats, mask)
+                        resolved[i] = _top_k_by_scale(feats, max_kp)
 
     if multiproc:
         # publish this process's images (owned exclusively: no write races;
@@ -180,12 +183,14 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
                 get_id(geotiff_paths[i]))))
 
     features = []
-    for i, path in enumerate(geotiff_paths):
-        features_i = resolved[i]
-        flush_print("{} keypoints in image {}".format(int(np.sum(~np.isnan(features_i[:, 0]))), i))
-        if config["FT_save"] and "out_dir" in config and not multiproc:
-            npy_out = os.path.join(config["out_dir"], "features/{}.npy".format(get_id(path)))
-            os.makedirs(os.path.dirname(npy_out), exist_ok=True)
-            np.save(npy_out, features_i)
-        features.append(features_i)
+    with span("detection.write"):
+        for i, path in enumerate(geotiff_paths):
+            features_i = resolved[i]
+            flush_print("{} keypoints in image {}".format(
+                int(np.sum(~np.isnan(features_i[:, 0]))), i))
+            if config["FT_save"] and "out_dir" in config and not multiproc:
+                npy_out = os.path.join(config["out_dir"], "features/{}.npy".format(get_id(path)))
+                os.makedirs(os.path.dirname(npy_out), exist_ok=True)
+                np.save(npy_out, features_i)
+            features.append(features_i)
     return features

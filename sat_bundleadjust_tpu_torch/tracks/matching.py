@@ -23,7 +23,6 @@ F init, RANSAC and the UTM filter are host numpy on both.
 """
 
 import os
-import time
 import uuid
 from collections import OrderedDict
 
@@ -40,6 +39,7 @@ from sat_bundleadjust_tpu_torch.parallel.mesh import world_size
 from sat_bundleadjust_tpu_torch.tracks import lightglue
 from sat_bundleadjust_tpu_torch.utils import geo as geo_utils
 from sat_bundleadjust_tpu_torch.utils.io import get_id
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 # process-unique prefix of the tokens that name in-memory features
 _MEM_TOKEN_SESSION = uuid.uuid4().hex[:8]
@@ -267,34 +267,31 @@ def _finalize_pairs_from_nn_batched(items, nn_results, tracks_config, timing=Non
     items: (idx, fi, fj, idx_i, idx_j, utm_i, utm_j) per pair; nn_results:
     (nn_idx, accepted) per pair. Returns matches_ij (or None) per pair."""
     thr = tracks_config["FT_ransac"]
-    t0 = time.time()
     prelim = []
     pts1_list, pts2_list, ransac_pos = [], [], []
-    for pos, ((_idx, fi, fj, *_rest), (nn, acc)) in enumerate(zip(items, nn_results)):
-        ii = np.where(np.asarray(acc))[0]
-        m = np.stack([ii, np.asarray(nn)[ii]], axis=1).astype(np.int64)
-        prelim.append(m if m.shape[0] > 0 else None)
-        if thr is not None and m.shape[0] >= MIN_SAMPLES:
-            pts1_list.append(fi[m[:, 0], :2])
-            pts2_list.append(fj[m[:, 1], :2])
-            ransac_pos.append(pos)
-    t1 = time.time()
-    if pts1_list:
-        for pos, (_F, inl) in zip(ransac_pos, ransac_fundamental_many(pts1_list, pts2_list,
-                                                                      thr=thr)):
-            prelim[pos] = None if inl is None or inl.sum() == 0 else prelim[pos][inl]
-    t2 = time.time()
+    with span("matching.collect", timing, "collect_s"):
+        for pos, ((_idx, fi, fj, *_rest), (nn, acc)) in enumerate(zip(items, nn_results)):
+            ii = np.where(np.asarray(acc))[0]
+            m = np.stack([ii, np.asarray(nn)[ii]], axis=1).astype(np.int64)
+            prelim.append(m if m.shape[0] > 0 else None)
+            if thr is not None and m.shape[0] >= MIN_SAMPLES:
+                pts1_list.append(fi[m[:, 0], :2])
+                pts2_list.append(fj[m[:, 1], :2])
+                ransac_pos.append(pos)
+    with span("matching.ransac", timing, "ransac_s", pairs=len(pts1_list)):
+        if pts1_list:
+            for pos, (_F, inl) in zip(ransac_pos, ransac_fundamental_many(pts1_list, pts2_list,
+                                                                          thr=thr)):
+                prelim[pos] = None if inl is None or inl.sum() == 0 else prelim[pos][inl]
     results = []
-    for pos, (_idx, _fi, _fj, idx_i, idx_j, utm_i, utm_j) in enumerate(items):
-        m = prelim[pos]
-        if m is None or m.shape[0] == 0:
-            results.append(None)
-            continue
-        matches_ij = np.stack([idx_i[m[:, 0]], idx_j[m[:, 1]]], axis=1)
-        results.append(filter_matches_inconsistent_utm_coords(matches_ij, utm_i, utm_j))
-    if timing is not None:
-        for k, v in (("collect_s", t1 - t0), ("ransac_s", t2 - t1), ("utm_s", time.time() - t2)):
-            timing[k] = timing.get(k, 0.0) + v
+    with span("matching.utm", timing, "utm_s"):
+        for pos, (_idx, _fi, _fj, idx_i, idx_j, utm_i, utm_j) in enumerate(items):
+            m = prelim[pos]
+            if m is None or m.shape[0] == 0:
+                results.append(None)
+                continue
+            matches_ij = np.stack([idx_i[m[:, 0]], idx_j[m[:, 1]]], axis=1)
+            results.append(filter_matches_inconsistent_utm_coords(matches_ij, utm_i, utm_j))
     return results
 
 
@@ -330,63 +327,61 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
     utm_cache = _FrameCache()
 
     # pass 1: caches, and each uncached pair's keypoints inside its UTM box
-    t0 = time.time()
-    resolved = [None] * len(pairs_to_match)
-    npy_ids = [None] * len(pairs_to_match)
-    from_cache = [False] * len(pairs_to_match)
-    to_match = []  # (idx, fi, fj, idx_i, idx_j, utm_i, utm_j)
-    to_match_frames = []
-    remote = []  # uncached pairs another process matches
-    for idx, (i, j) in enumerate(pairs_to_match):
-        npy_id1 = "{}_{}.npy".format(fid(features[i]), fid(features[j]))
-        npy_id2 = "{}_{}.npy".format(fid(features[j]), fid(features[i]))
-        npy_path1 = os.path.join(in_dir, "pairwise_matches", npy_id1)
-        npy_path2 = os.path.join(in_dir, "pairwise_matches", npy_id2)
-        npy_ids[idx] = npy_id1
-        if in_dir and os.path.exists(npy_path1) and not tracks_config["FT_reset"]:
-            resolved[idx] = np.load(npy_path1)
-            from_cache[idx] = npy_path1
-            continue
-        if in_dir and os.path.exists(npy_path2) and not tracks_config["FT_reset"]:
-            resolved[idx] = np.load(npy_path2)[:, ::-1]
-            npy_ids[idx] = npy_id2
-            from_cache[idx] = npy_path2
-            continue
-        if owned is not None and idx not in owned:
-            remote.append(idx)
-            continue
+    with span("matching.prep", timing, "prep_s"):
+        resolved = [None] * len(pairs_to_match)
+        npy_ids = [None] * len(pairs_to_match)
+        from_cache = [False] * len(pairs_to_match)
+        to_match = []  # (idx, fi, fj, idx_i, idx_j, utm_i, utm_j)
+        to_match_frames = []
+        remote = []  # uncached pairs another process matches
+        for idx, (i, j) in enumerate(pairs_to_match):
+            npy_id1 = "{}_{}.npy".format(fid(features[i]), fid(features[j]))
+            npy_id2 = "{}_{}.npy".format(fid(features[j]), fid(features[i]))
+            npy_path1 = os.path.join(in_dir, "pairwise_matches", npy_id1)
+            npy_path2 = os.path.join(in_dir, "pairwise_matches", npy_id2)
+            npy_ids[idx] = npy_id1
+            if in_dir and os.path.exists(npy_path1) and not tracks_config["FT_reset"]:
+                resolved[idx] = np.load(npy_path1)
+                from_cache[idx] = npy_path1
+                continue
+            if in_dir and os.path.exists(npy_path2) and not tracks_config["FT_reset"]:
+                resolved[idx] = np.load(npy_path2)[:, ::-1]
+                npy_ids[idx] = npy_id2
+                from_cache[idx] = npy_path2
+                continue
+            if owned is not None and idx not in owned:
+                remote.append(idx)
+                continue
 
-        poly_i = geo_utils.geojson_to_polygon(footprints[i]["geojson"])
-        poly_j = geo_utils.geojson_to_polygon(footprints[j]["geojson"])
-        utm_polygon = poly_i.intersection(poly_j)
-        if utm_polygon.coords.shape[0] < 3:
-            continue
-        utm_i = utm_cache.get(i, utm_coords[i])
-        utm_j = utm_cache.get(j, utm_coords[j])
-        idx_i, idx_j = utm_bbox_indices(utm_i, utm_j, utm_polygon)
-        if len(idx_i) == 0 or len(idx_j) == 0:
-            continue
-        frame_i = frame_cache.get(i, features[i])
-        frame_j = frame_cache.get(j, features[j])
-        if staged_intent:
-            # the staged matcher gathers descriptors on the device; the host
-            # keeps the coordinates (RANSAC, UTM filter)
-            fi, fj = frame_i[idx_i, :2], frame_j[idx_j, :2]
-        else:
-            fi, fj = np.asarray(frame_i[idx_i]), np.asarray(frame_j[idx_j])
-        to_match.append((idx, fi, fj, idx_i, idx_j, utm_i, utm_j))
-        to_match_frames.append((i, j))
-    timing["prep_s"] = timing.get("prep_s", 0.0) + time.time() - t0
+            poly_i = geo_utils.geojson_to_polygon(footprints[i]["geojson"])
+            poly_j = geo_utils.geojson_to_polygon(footprints[j]["geojson"])
+            utm_polygon = poly_i.intersection(poly_j)
+            if utm_polygon.coords.shape[0] < 3:
+                continue
+            utm_i = utm_cache.get(i, utm_coords[i])
+            utm_j = utm_cache.get(j, utm_coords[j])
+            idx_i, idx_j = utm_bbox_indices(utm_i, utm_j, utm_polygon)
+            if len(idx_i) == 0 or len(idx_j) == 0:
+                continue
+            frame_i = frame_cache.get(i, features[i])
+            frame_j = frame_cache.get(j, features[j])
+            if staged_intent:
+                # the staged matcher gathers descriptors on the device; the
+                # host keeps the coordinates (RANSAC, UTM filter)
+                fi, fj = frame_i[idx_i, :2], frame_j[idx_j, :2]
+            else:
+                fi, fj = np.asarray(frame_i[idx_i]), np.asarray(frame_j[idx_j])
+            to_match.append((idx, fi, fj, idx_i, idx_j, utm_i, utm_j))
+            to_match_frames.append((i, j))
 
     # pass 2: the 2-NN stage of every pair at once, then RANSAC and UTM;
     # LightGlue matches one pair at a time, as in the JAX package
     if to_match and method_cfg == "lightglue":
-        t0 = time.time()
-        for (idx, fi, fj, idx_i, idx_j, utm_i, utm_j) in to_match:
-            m, _, _ = lightglue.lightglue_matching(fi, fj, ransac_thr=tracks_config["FT_ransac"],
-                                                   device=dev)
-            resolved[idx] = _remap_and_filter(m, idx_i, idx_j, utm_i, utm_j)
-        timing["finalize_s"] = timing.get("finalize_s", 0.0) + time.time() - t0
+        with span("matching.lightglue", timing, "finalize_s"):
+            for (idx, fi, fj, idx_i, idx_j, utm_i, utm_j) in to_match:
+                m, _, _ = lightglue.lightglue_matching(
+                    fi, fj, ransac_thr=tracks_config["FT_ransac"], device=dev)
+                resolved[idx] = _remap_and_filter(m, idx_i, idx_j, utm_i, utm_j)
     elif to_match:
         pair_F = [None if method_cfg in ("bruteforce", "flann") else F[idx]
                   for (idx, *_rest) in to_match]
@@ -395,38 +390,35 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
               "method": "absolute" if method_cfg == "absolute" else "relative"}
         nn_results = None
         if staged_intent:
-            t0 = time.time()
             frames_used = sorted({f for ij in to_match_frames for f in ij})
             fmap = {f: k for k, f in enumerate(frames_used)}
-            staged = match_ops.stage_frames_for_matching(
-                [frame_cache.get(f, features[f]) for f in frames_used], device=dev)
-            timing["stage_s"] = timing.get("stage_s", 0.0) + time.time() - t0
+            with span("matching.stage", timing, "stage_s", frames=len(frames_used)):
+                staged = match_ops.stage_frames_for_matching(
+                    [frame_cache.get(f, features[f]) for f in frames_used], device=dev)
             if staged is not None:
-                t0 = time.time()
-                nn_results = match_ops.match_pairs_2nn_staged(
-                    staged, [(fmap[i], fmap[j]) for (i, j) in to_match_frames],
-                    [(idx_i, idx_j) for (_, _, _, idx_i, idx_j, *_r) in to_match],
-                    pair_F, timing=timing, **kw)
-                timing["nn_s"] = timing.get("nn_s", 0.0) + time.time() - t0
+                with span("matching.nn", timing, "nn_s", pairs=len(to_match)):
+                    nn_results = match_ops.match_pairs_2nn_staged(
+                        staged, [(fmap[i], fmap[j]) for (i, j) in to_match_frames],
+                        [(idx_i, idx_j) for (_, _, _, idx_i, idx_j, *_r) in to_match],
+                        pair_F, timing=timing, **kw)
         if nn_results is None:
-            t0 = time.time()
-            if staged_intent:
-                # staging declined (non-integer descriptors): the host packer
-                # needs the full 132-column rows
-                pair_feats = [(np.asarray(frame_cache.get(i, features[i])[idx_i]),
-                               np.asarray(frame_cache.get(j, features[j])[idx_j]))
-                              for ((i, j), (_, _, _, idx_i, idx_j, *_r))
-                              in zip(to_match_frames, to_match)]
-            else:
-                pair_feats = [(fi, fj) for (_, fi, fj, *_r) in to_match]
-            nn_results = match_ops.match_pairs_2nn_batched(pair_feats, pair_F, device=dev, **kw)
-            timing["nn_s"] = timing.get("nn_s", 0.0) + time.time() - t0
-        t0 = time.time()
-        for (idx, *_rest), matches_ij in zip(
-                to_match, _finalize_pairs_from_nn_batched(to_match, nn_results, tracks_config,
-                                                          timing)):
-            resolved[idx] = matches_ij
-        timing["finalize_s"] = timing.get("finalize_s", 0.0) + time.time() - t0
+            with span("matching.nn", timing, "nn_s", pairs=len(to_match)):
+                if staged_intent:
+                    # staging declined (non-integer descriptors): the host
+                    # packer needs the full 132-column rows
+                    pair_feats = [(np.asarray(frame_cache.get(i, features[i])[idx_i]),
+                                   np.asarray(frame_cache.get(j, features[j])[idx_j]))
+                                  for ((i, j), (_, _, _, idx_i, idx_j, *_r))
+                                  in zip(to_match_frames, to_match)]
+                else:
+                    pair_feats = [(fi, fj) for (_, fi, fj, *_r) in to_match]
+                nn_results = match_ops.match_pairs_2nn_batched(pair_feats, pair_F, device=dev,
+                                                               **kw)
+        with span("matching.finalize", timing, "finalize_s"):
+            for (idx, *_rest), matches_ij in zip(
+                    to_match, _finalize_pairs_from_nn_batched(to_match, nn_results,
+                                                              tracks_config, timing)):
+                resolved[idx] = matches_ij
 
     if multiproc:
         # publish this process's pairs (empty results too: "matched, none
@@ -447,31 +439,30 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
     # when the output cache is elsewhere than where it was read; with several
     # processes the own pairs were published above and rank 0 alone
     # relocates cache hits)
-    t0 = time.time()
-    kp_rows, im_rows = [], []
-    for idx, (i, j) in enumerate(pairs_to_match):
-        matches_ij = resolved[idx]
-        n_matches = 0 if matches_ij is None else matches_ij.shape[0]
-        if from_cache[idx]:
-            print("{:4} matches (from pre-existing file) in pair {}".format(n_matches, (i, j)),
-                  flush=True)
-        else:
-            print("{:4} matches in pair {}".format(n_matches, (i, j)), flush=True)
-        if n_matches > 0:
-            kp_rows.append(np.asarray(matches_ij, dtype=np.int64))
-            im_rows.append(np.broadcast_to(np.array([i, j], dtype=np.int64), (n_matches, 2)))
-            if tracks_config.get("FT_save") and out_dir:
-                out_path = os.path.join(out_dir, "pairwise_matches",
-                                        _guard_mem_token(npy_ids[idx]))
-                if multiproc:
-                    write = (from_cache[idx] and out_path != from_cache[idx]
-                             and multihost.is_main_process() and not os.path.exists(out_path))
-                else:
-                    write = out_path != from_cache[idx]
-                if write:
-                    os.makedirs(os.path.dirname(out_path), exist_ok=True)
-                    np.save(out_path, np.asarray(matches_ij))
-    timing["assemble_s"] = timing.get("assemble_s", 0.0) + time.time() - t0
+    with span("matching.assemble", timing, "assemble_s"):
+        kp_rows, im_rows = [], []
+        for idx, (i, j) in enumerate(pairs_to_match):
+            matches_ij = resolved[idx]
+            n_matches = 0 if matches_ij is None else matches_ij.shape[0]
+            if from_cache[idx]:
+                print("{:4} matches (from pre-existing file) in pair {}".format(n_matches, (i, j)),
+                      flush=True)
+            else:
+                print("{:4} matches in pair {}".format(n_matches, (i, j)), flush=True)
+            if n_matches > 0:
+                kp_rows.append(np.asarray(matches_ij, dtype=np.int64))
+                im_rows.append(np.broadcast_to(np.array([i, j], dtype=np.int64), (n_matches, 2)))
+                if tracks_config.get("FT_save") and out_dir:
+                    out_path = os.path.join(out_dir, "pairwise_matches",
+                                            _guard_mem_token(npy_ids[idx]))
+                    if multiproc:
+                        write = (from_cache[idx] and out_path != from_cache[idx]
+                                 and multihost.is_main_process() and not os.path.exists(out_path))
+                    else:
+                        write = out_path != from_cache[idx]
+                    if write:
+                        os.makedirs(os.path.dirname(out_path), exist_ok=True)
+                        np.save(out_path, np.asarray(matches_ij))
     if not kp_rows:
         return np.zeros((0, 4), dtype=np.int64)
     return np.hstack((np.concatenate(kp_rows), np.concatenate(im_rows)))

@@ -16,7 +16,6 @@ behind barriers; rank 0 alone writes the portable artifacts.
 """
 
 import os
-import timeit
 
 import numpy as np
 
@@ -31,6 +30,7 @@ from sat_bundleadjust_tpu_torch.utils import geo as geo_utils
 from sat_bundleadjust_tpu_torch.utils import io as loader
 from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
 from sat_bundleadjust_tpu_torch.utils.io import flush_print
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
 class FeatureTracksPipeline:
@@ -85,10 +85,11 @@ class FeatureTracksPipeline:
 
         if handoff:
             self.features = list(feats_mem)
-            self.features_utm = [
-                ft_matching.keypoints_to_utm_coords(f, im.rpc, im.offset, im.alt or 0.0)
-                for f, im in zip(feats_mem, self.images)
-            ]
+            with span("tracks.features_utm"):
+                self.features_utm = [
+                    ft_matching.keypoints_to_utm_coords(f, im.rpc, im.offset, im.alt or 0.0)
+                    for f, im in zip(feats_mem, self.images)
+                ]
             return
 
         self.features = ["{}/features/{}.npy".format(self.output_dir, loader.get_id(p))
@@ -98,14 +99,15 @@ class FeatureTracksPipeline:
         # several processes: the UTM coordinates follow detection's images,
         # synced before any process reads another's
         owned = set(multihost.partition_by_process(len(self.images)))
-        for k, (npy, npy_utm, im) in enumerate(zip(self.features, self.features_utm,
-                                                   self.images)):
-            if k not in owned or (not self.config["FT_reset"] and os.path.exists(npy_utm)):
-                continue
-            utm = ft_matching.keypoints_to_utm_coords(np.load(npy, mmap_mode="r"), im.rpc,
-                                                      im.offset, im.alt or 0.0)
-            os.makedirs(os.path.dirname(npy_utm), exist_ok=True)
-            np.save(npy_utm, utm)
+        with span("tracks.features_utm"):
+            for k, (npy, npy_utm, im) in enumerate(zip(self.features, self.features_utm,
+                                                       self.images)):
+                if k not in owned or (not self.config["FT_reset"] and os.path.exists(npy_utm)):
+                    continue
+                utm = ft_matching.keypoints_to_utm_coords(np.load(npy, mmap_mode="r"), im.rpc,
+                                                          im.offset, im.alt or 0.0)
+                os.makedirs(os.path.dirname(npy_utm), exist_ok=True)
+                np.save(npy_utm, utm)
         multihost.barrier("features_utm")
 
     def get_stereo_pairs_to_match(self):
@@ -134,9 +136,8 @@ class FeatureTracksPipeline:
         """Epipolar F init (epipolar_based), then the matching of all pairs."""
         F = None
         if self.config["FT_sift_matching"] == "epipolar_based":
-            t0 = timeit.default_timer()
-            F = ft_matching.init_F_pairs_batched(self.pairs_to_match, self.images)
-            self.timing["F_init_s"] = timeit.default_timer() - t0
+            with span("tracks.F_init", self.timing, "F_init_s"):
+                F = ft_matching.init_F_pairs_batched(self.pairs_to_match, self.images)
         self.pairwise_matches = ft_matching.match_stereo_pairs(
             self.pairs_to_match, self.features, self.footprints, self.features_utm,
             self.config, F, device=self.device, timing=self.timing)
@@ -181,30 +182,31 @@ class FeatureTracksPipeline:
         print("Building feature tracks\n")
         print("Parameters:")
         loader.display_dict(self.config)
-        clock = timeit.default_timer
-        t_start = clock()
         self.timing = {}
 
-        def timed(label, key, fn):
+        def timed(label, name, key, fn):
             flush_print("\n[tracks] {}...".format(label))
-            t0 = clock()
-            out = fn()
-            self.timing[key] = clock() - t0
+            with span(name, self.timing, key):
+                out = fn()
             flush_print("[tracks] {}: {:.2f} s".format(label, self.timing[key]))
             return out
 
-        timed("feature detection", "detection_s", self.run_feature_detection)
-        timed("pair selection", "pairs_s", self.get_stereo_pairs_to_match)
-        if len(self.pairs_to_match) > 0:
-            timed("matching", "matching_s", self.run_feature_matching)
-        else:
-            self.pairwise_matches = np.zeros((0, 4), dtype=np.int64)
-            flush_print("\n[tracks] matching: nothing to do (no pairs)")
-        feature_tracks = timed("track construction", "tracks_s", self.get_feature_tracks)
-        if self.config.get("FT_save") and multihost.is_main_process():
-            timed("portable artifacts", "artifacts_s", self._save_portable_artifacts)
+        with span("tracks.run") as wall:
+            timed("feature detection", "tracks.detection", "detection_s",
+                  self.run_feature_detection)
+            timed("pair selection", "tracks.pairs", "pairs_s", self.get_stereo_pairs_to_match)
+            if len(self.pairs_to_match) > 0:
+                timed("matching", "tracks.matching", "matching_s", self.run_feature_matching)
+            else:
+                self.pairwise_matches = np.zeros((0, 4), dtype=np.int64)
+                flush_print("\n[tracks] matching: nothing to do (no pairs)")
+            feature_tracks = timed("track construction", "tracks.build", "tracks_s",
+                                   self.get_feature_tracks)
+            if self.config.get("FT_save") and multihost.is_main_process():
+                timed("portable artifacts", "tracks.artifacts", "artifacts_s",
+                      self._save_portable_artifacts)
 
-        total = clock() - t_start
+        total = wall.seconds
         flush_print("\nFeature tracks computed in {}\n".format(
             loader.get_time_in_hours_mins_secs(total)))
         return feature_tracks, total
