@@ -65,6 +65,23 @@ def load_camera_from_cam_params(cam_params, cam_model):
     return cam_params.reshape(1, 9)
 
 
+def point_major_order(pts_ind, cam_ind):
+    """np.lexsort((cam_ind, pts_ind)): the stable order of the observations
+    by (point, camera), as one stable sort (torch's, on the host's threads)
+    of the key point * S + camera - min(camera), S the cameras' span, in
+    int32 where it fits (that sort is the faster), else in int64."""
+    pts = torch.as_tensor(np.asarray(pts_ind, np.int64))
+    cam = torch.as_tensor(np.asarray(cam_ind, np.int64))
+    if cam.numel() == 0:
+        return np.zeros(0, np.int64)
+    low, high = torch.aminmax(cam)
+    key = pts * (high - low + 1) + (cam - low)
+    low, high = torch.aminmax(key)
+    if -2**31 <= low and high < 2**31:
+        key = key.int()
+    return torch.sort(key, stable=True).indices.numpy()
+
+
 class BAParams:
     """The bundle adjustment problem state.
 
@@ -206,11 +223,12 @@ class BAParams:
                      for c, oC in zip(self.cameras, self.camera_centers)]
                 )
 
-            with span("ba.params.lexsort"):
-                order = np.lexsort((np.asarray(cam_ind), np.asarray(pts_ind)))
-                self.pts_ind = np.asarray(pts_ind, np.int32)[order]
-                self.cam_ind = np.asarray(cam_ind, np.int32)[order]
-                self.pts2d = np.asarray(pts2d, np.float64)[order]
+            with span("ba.params.sort"):
+                order = torch.from_numpy(point_major_order(pts_ind, cam_ind))
+                self.pts_ind, self.cam_ind, self.pts2d = (
+                    torch.from_numpy(np.ascontiguousarray(a, dtype)).index_select(0, order).numpy()
+                    for a, dtype in ((pts_ind, np.int32), (cam_ind, np.int32),
+                                     (pts2d, np.float64)))
             self.n_obs = self.pts2d.shape[0]
             self.pts2d_w = np.ones(self.n_obs)
             if self.ref_cam_weight > 1.0:
@@ -286,8 +304,7 @@ class BAParams:
 
             with span("ba.reconstruct.points"):
                 corrected_pts3d = np.array(pts3d_init, dtype=np.float64, copy=True)
-                for ba_idx, prev_idx in enumerate(self.pts_prev_indices):
-                    corrected_pts3d[prev_idx] = self.pts3d_ba[ba_idx]
+                corrected_pts3d[self.pts_prev_indices] = self.pts3d_ba
             corrected_cameras = list(cameras_init)
             for ba_idx, prev_idx in enumerate(self.cam_prev_indices):
                 corrected_cameras[prev_idx] = self.cameras_ba[ba_idx]

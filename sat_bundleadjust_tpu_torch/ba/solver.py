@@ -12,6 +12,8 @@ forward-mode AD of the per-observation residual (torch.func.jacfwd under
 vmap) in float64, as the JAX package does with jax.jacfwd.
 """
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -46,19 +48,40 @@ def _obs_residual_fn(proj_of):
     return fn
 
 
-def make_fns(p, device, jac_dtype=torch.float32):
+class Observations(NamedTuple):
+    """The observation table of a BAParams on the solver's device, shared by
+    the closures and the LMProblem. nbytes: what was copied to the device
+    (0 on the CPU, where the tensors take the arrays as they are)."""
+
+    pts_ind: torch.Tensor  # (K,) int64
+    cam_ind: torch.Tensor  # (K,) int64
+    pts2d: torch.Tensor  # (K, 2) f64
+    weights: torch.Tensor  # (K,) f64
+    nbytes: int
+
+
+def upload_observations(p, device):
+    """p's observation table on device, in one copy of each array; the
+    indices go up in their own dtype and widen to int64 there."""
+    dev = torch.device(device)
+    host = (np.ascontiguousarray(p.pts_ind), np.ascontiguousarray(p.cam_ind),
+            np.ascontiguousarray(p.pts2d, np.float64), np.ascontiguousarray(p.pts2d_w, np.float64))
+    pts_ind, cam_ind, pts2d, w = (torch.as_tensor(a, device=dev) for a in host)
+    nbytes = 0 if dev.type == "cpu" else sum(a.nbytes for a in host)
+    return Observations(pts_ind.long(), cam_ind.long(), pts2d, w, nbytes)
+
+
+def make_fns(p, device, jac_dtype=torch.float32, obs=None):
     """(residual_fn, jac_fn) over the observation table of a BAParams, on
     device: residual_fn(cam_opt, pts3d) -> r (K, 2) f64; jac_fn -> (r,
     J_cam, J_pt), the rpc Jacobians in jac_dtype, the matrix models' in
-    float64."""
+    float64. obs: the table already on device (upload_observations)."""
     dev = torch.device(device)
     n_params = p.n_params
     f64 = torch.float64
     cam_tail = torch.as_tensor(p.cam_params[:, n_params:], dtype=f64, device=dev)
-    pts_ind = torch.as_tensor(p.pts_ind, dtype=torch.int64, device=dev)
-    cam_ind = torch.as_tensor(p.cam_ind, dtype=torch.int64, device=dev)
-    pts2d = torch.as_tensor(p.pts2d, dtype=f64, device=dev)
-    w = torch.as_tensor(p.pts2d_w, dtype=f64, device=dev)
+    obs = upload_observations(p, dev) if obs is None else obs
+    pts_ind, cam_ind, pts2d, w = obs.pts_ind, obs.cam_ind, obs.pts2d, obs.weights
 
     if p.cam_model != "rpc":
         proj_of = affine_from_params if p.cam_model == "affine" else perspective_from_params
@@ -93,8 +116,10 @@ def make_fns(p, device, jac_dtype=torch.float32):
     return residual_fn, jac_fn
 
 
-def build_problem(p, device, schur_mode=None):
-    """The LMProblem of a BAParams on device, and the Schur mode.
+def build_problem(p, device, schur_mode=None, obs=None):
+    """The LMProblem of a BAParams on device, and the Schur mode. Its index
+    tables are built there from the observation table (obs, else uploaded
+    here) by ops/lm.problem_tables.
 
     Default mode: "cg" on CUDA (as on any accelerator); on the CPU "dense"
     up to 192 cameras, else "cg"."""
@@ -104,39 +129,19 @@ def build_problem(p, device, schur_mode=None):
             schur_mode = "cg"
         else:
             schur_mode = "dense" if p.n_cam <= 192 else "cg"
-    pair_k1, pair_k2 = lm_ops.build_intra_track_pairs(p.pts_ind, p.n_pts)
-    pt_table = lm_ops.build_gather_segments(p.pts_ind, p.n_pts)
-    cam_table = lm_ops.build_gather_segments(p.cam_ind, p.n_cam)
-    # dual layouts only when their padding stays bounded (a dominant camera
-    # or track would blow the padded tables far beyond K slots)
-    K = p.n_obs
-    dual_ok = K > 0 and pt_table.size <= 4 * K and cam_table.size <= 4 * K
-
-    def idx(a, dtype=torch.int64):
-        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    obs = upload_observations(p, dev) if obs is None else obs
 
     def f64(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)
 
-    obs_at = None
-    if p.n_pts * p.n_cam <= 30_000_000:  # (N, M) table + (N, M, P, 3) transients
-        obs_at = lm_ops.build_obs_at(p.pts_ind, p.cam_ind, p.n_pts, p.n_cam)
     prob = lm_ops.LMProblem(
-        pts_ind=idx(p.pts_ind),
-        cam_ind=idx(p.cam_ind),
-        pts2d=f64(p.pts2d),
-        weights=f64(p.pts2d_w),
+        pts_ind=obs.pts_ind,
+        cam_ind=obs.cam_ind,
+        pts2d=obs.pts2d,
+        weights=obs.weights,
         cam_opt_mask=f64(p.cam_opt_mask),
         pts_opt_mask=f64(p.pts_opt_mask),
-        pair_k1=idx(pair_k1),
-        pair_k2=idx(pair_k2),
-        pt_gather=idx(pt_table),
-        cam_gather=idx(cam_table),
-        obs_at=idx(obs_at) if obs_at is not None else None,
-        cam_ind_pt=idx(lm_ops.gather_table_values(pt_table, p.cam_ind, K, p.n_cam),
-                       torch.int32) if dual_ok else None,
-        pts_ind_cam=idx(lm_ops.gather_table_values(cam_table, p.pts_ind, K, p.n_pts),
-                        torch.int32) if dual_ok else None,
+        **lm_ops.problem_tables(obs.pts_ind, obs.cam_ind, p.n_pts, p.n_cam),
     )
     if schur_mode == "dense" and prob.obs_at is None and dev.type != "cpu":
         # the pair-based dense assembly scatters Q = sum(track length^2)
@@ -156,12 +161,15 @@ class BASolver:
     def __init__(self, p, schur_mode=None, jac_dtype=None, device=None):
         self.p = p
         self.device = resolve_device(device)
-        with span("ba.solver.init"):
+        with span("ba.solver.init", tables_on=self.device.type) as init:
+            with span("ba.upload"):
+                obs = upload_observations(p, self.device)
+            init.attrs["h2d_bytes"] = obs.nbytes
             with span("ba.make_fns"):
                 self.residual_fn, self.jac_fn = make_fns(
-                    p, self.device, jac_dtype=torch.float32 if jac_dtype is None else jac_dtype)
+                    p, self.device, torch.float32 if jac_dtype is None else jac_dtype, obs)
             with span("ba.build_problem"):
-                self.prob, self.mode = build_problem(p, self.device, schur_mode)
+                self.prob, self.mode = build_problem(p, self.device, schur_mode, obs)
         self._drivers = {}
 
     def driver(self, cfg, graphs=True):

@@ -80,13 +80,11 @@ def map_rpc(fn, rpc):
 
 
 def stack_rpcs(rpcs, device):
-    """Stack a list of RPCModel into one batched float64 RPCModel on device
-    (leading dim M)."""
+    """Stack a list of RPCModel (host fields) into one batched float64
+    RPCModel on device (leading dim M): each field in one array operation
+    over the models, then one tensor."""
     fields = zip(*[tuple(r) for r in rpcs])
-    return RPCModel(*[
-        torch.stack([torch.as_tensor(np.array(v, np.float64)) for v in vals]).to(device)
-        for vals in fields
-    ])
+    return RPCModel(*[torch.as_tensor(np.array(vals, np.float64)).to(device) for vals in fields])
 
 
 def index_rpc(batched, idx):

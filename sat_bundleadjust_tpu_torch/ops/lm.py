@@ -114,7 +114,8 @@ def new_stats():
 
 
 # ----------------------------------------------------------------------
-# host-side index tables (numpy; identical to the JAX package's)
+# host-side index tables (numpy; identical to the JAX package's, and the
+# reference of problem_tables below)
 # ----------------------------------------------------------------------
 
 
@@ -175,6 +176,73 @@ def build_obs_at(pts_ind, cam_ind, n_pts, n_cam):
     table = np.full((n_pts, n_cam), K, dtype=np.int32)
     table[pts_ind, cam_ind] = np.arange(K, dtype=np.int32)
     return table
+
+
+# ----------------------------------------------------------------------
+# the same tables, built with torch where the observation table lives
+# ----------------------------------------------------------------------
+
+# obs_at only up to this many (track, camera) entries: the (N, M) table and
+# the dense path's (N, M, P, 3) transients
+OBS_AT_MAX = 30_000_000
+
+
+def _segments(ind, n_segments):
+    """The stable order of ind, ind in that order, and each segment's count
+    and first slot in that order."""
+    ind_sorted, order = torch.sort(ind, stable=True)
+    counts = torch.bincount(ind, minlength=n_segments)
+    return order, ind_sorted, counts, torch.cumsum(counts, 0) - counts
+
+
+def _gather_table(order, ind_sorted, starts, n_segments, width):
+    """build_gather_segments' table from _segments' outputs."""
+    K = order.numel()
+    table = torch.full((n_segments, width), K, dtype=torch.int64, device=order.device)
+    table[ind_sorted, torch.arange(K, device=order.device) - starts[ind_sorted]] = order
+    return table
+
+
+def problem_tables(pts_ind, cam_ind, n_pts, n_cam):
+    """The index tables of an LMProblem, built by torch operations on the
+    device of pts_ind and cam_ind (int64 (K,)): pair_k1, pair_k2, pt_gather,
+    cam_gather (int64); the dual layouts cam_ind_pt, pts_ind_cam (int32)
+    when both padded tables hold at most 4 K slots, else None; obs_at
+    (int64) up to OBS_AT_MAX entries and when no (track, camera) repeats,
+    else None. Each equals what the numpy builders above give on the same
+    input. The host reads four scalars, at once: the two widths, the pair
+    count Q and the repeats."""
+    dev = pts_ind.device
+    K = pts_ind.numel()
+    order_p, sorted_p, count_p, start_p = _segments(pts_ind, n_pts)
+    order_c, sorted_c, count_c, start_c = _segments(cam_ind, n_cam)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    reads = [torch.cat([count_p, zero]).max(), torch.cat([count_c, zero]).max(),
+             (count_p * count_p).sum(), zero[0]]
+    with_obs_at = n_pts * n_cam <= OBS_AT_MAX
+    if with_obs_at:
+        flat = torch.sort(pts_ind * n_cam + cam_ind).values
+        reads[3] = (flat[1:] == flat[:-1]).sum()
+    Tp, Tc, Q, repeats = torch.stack(reads).tolist()
+    Tp, Tc = max(Tp, 1), max(Tc, 1)
+
+    # each track-sorted observation pairs with its whole track, in order
+    reps = count_p[sorted_p]
+    r = torch.repeat_interleave(torch.arange(K, device=dev), reps, output_size=Q)
+    shift = start_p[sorted_p] - (torch.cumsum(reps, 0) - reps)
+    tables = {"pair_k1": order_p[r],
+              "pair_k2": order_p[torch.arange(Q, device=dev) + shift[r]],
+              "pt_gather": _gather_table(order_p, sorted_p, start_p, n_pts, Tp),
+              "cam_gather": _gather_table(order_c, sorted_c, start_c, n_cam, Tc),
+              "cam_ind_pt": None, "pts_ind_cam": None, "obs_at": None}
+    if K > 0 and n_pts * Tp <= 4 * K and n_cam * Tc <= 4 * K:
+        tables["cam_ind_pt"] = torch.cat([cam_ind, zero + n_cam])[tables["pt_gather"]].int()
+        tables["pts_ind_cam"] = torch.cat([pts_ind, zero + n_pts])[tables["cam_gather"]].int()
+    if with_obs_at and not repeats:
+        obs_at = torch.full((n_pts, n_cam), K, dtype=torch.int64, device=dev)
+        obs_at[pts_ind, cam_ind] = torch.arange(K, device=dev)
+        tables["obs_at"] = obs_at
+    return tables
 
 
 # ----------------------------------------------------------------------

@@ -116,6 +116,46 @@ def schur_operands(M, N, tp_max, P, empty_camera=False, full=False, seed=0):
     return tuple(torch.from_numpy(a) for a in (W_pt, cam_ind_pt, W_cm, pts_ind_cam))
 
 
+def numpy_problem(p, device):
+    """The LMProblem of a BAParams from the numpy builders of ops/lm.py,
+    each table uploaded as it is: the reference of ops/lm.problem_tables
+    (the tables ba/solver.build_problem builds where the solver runs), with
+    its rules for the dual layouts and obs_at."""
+    K, N, M = p.n_obs, p.n_pts, p.n_cam
+    pair_k1, pair_k2 = tlm.build_intra_track_pairs(p.pts_ind, N)
+    pt_table = tlm.build_gather_segments(p.pts_ind, N)
+    cam_table = tlm.build_gather_segments(p.cam_ind, M)
+    dual_ok = K > 0 and pt_table.size <= 4 * K and cam_table.size <= 4 * K
+    obs_at = tlm.build_obs_at(p.pts_ind, p.cam_ind, N, M) if N * M <= tlm.OBS_AT_MAX else None
+
+    def idx(a, dtype=torch.int64):
+        return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=device)
+
+    return tlm.LMProblem(
+        pts_ind=idx(p.pts_ind), cam_ind=idx(p.cam_ind), pts2d=f64(p.pts2d),
+        weights=f64(p.pts2d_w), cam_opt_mask=f64(p.cam_opt_mask),
+        pts_opt_mask=f64(p.pts_opt_mask), pair_k1=idx(pair_k1), pair_k2=idx(pair_k2),
+        pt_gather=idx(pt_table), cam_gather=idx(cam_table), obs_at=idx(obs_at),
+        cam_ind_pt=idx(tlm.gather_table_values(pt_table, p.cam_ind, K, M), torch.int32)
+        if dual_ok else None,
+        pts_ind_cam=idx(tlm.gather_table_values(cam_table, p.pts_ind, K, N), torch.int32)
+        if dual_ok else None)
+
+
+def assert_same_problem(got, want):
+    """Two LMProblems field by field: the same fields set, dtypes and
+    values."""
+    for name in tlm.LMProblem._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert a.dtype == b.dtype, name
+            assert torch.equal(a.cpu(), b.cpu()), name
+
+
 # (M, N, tp_max, P, empty_camera, full): the card's edge shapes
 SCHUR_EDGE_CASES = {
     # slice C's shape class: few cameras, every track in each, Tc long
@@ -687,6 +727,42 @@ def test_captured_solves_of_two_problems_interleave(cuda):
         _, (cam, pts), _, _, info = solvers[n].solve(ls)
         assert info["graph_replays"] > 0
         assert torch.equal(cam, eager[n][0]) and torch.equal(pts, eager[n][1]), n
+
+
+@pytest.mark.cuda
+def test_stage_tables_built_on_the_card(cuda):
+    """rpc_ba1000's BA stage (1000 cameras, 200 000 tracks of 4
+    observations, the table shuffled): the solver's tables built on the card
+    equal the numpy builders', the `ba.solver.init` span says where they
+    were built and what went up, and the L2 solve on them gives the bits of
+    the same solve on the numpy builders' tables uploaded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.ba.params import BAParams
+    from sat_bundleadjust_tpu_torch.utils import profiling
+
+    scene = demo.make_scene_arrays(n_cam=1000, n_pts=200_000, obs_per_pt=4, seed=0, device=cuda)
+    order = np.random.RandomState(7).permutation(len(scene["pts_ind"]))
+    pts0 = scene["pts3d"] + np.random.RandomState(1).randn(*scene["pts3d"].shape)
+    p = BAParams.from_obs_table(scene["pts_ind"][order], scene["cam_ind"][order],
+                                scene["pts2d"][order], pts0, scene["rpc_list"], "rpc",
+                                list(scene["camera_centers"]), [], {"verbose": False})
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        solver = tsolver.BASolver(p, device=cuda)
+    init = [s for s in profiling.spans() if s[2] == "ba.solver.init"]
+    profiling.reset()
+    assert len(init) == 1 and init[0][5]["tables_on"] == "cuda"
+    assert init[0][5]["h2d_bytes"] == p.n_obs * (4 + 4 + 16 + 8)
+    assert_same_problem(solver.prob, numpy_problem(p, cuda))
+    assert solver.prob.cam_ind_pt is not None and solver.prob.obs_at is None
+
+    host = tsolver.BASolver(p, device=cuda)
+    host.prob = numpy_problem(p, cuda)
+    (_, (cam, pts), _, err, info), (_, (cam_h, pts_h), _, err_h, info_h) = (
+        s.solve(None) for s in (solver, host))
+    assert torch.equal(cam, cam_h) and torch.equal(pts, pts_h) and np.array_equal(err, err_h)
+    assert info["iterations"] == info_h["iterations"] > 1
 
 
 def _failed_capture():

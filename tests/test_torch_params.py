@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from test_torch_common import both_problems, jax_scene, rpc_arrays
+from test_torch_cuda import assert_same_problem, numpy_problem
 
 from sat_bundleadjust_tpu.ba import solver as jsolver
 from sat_bundleadjust_tpu.ops import lm as jlm
@@ -38,18 +39,42 @@ def _assert_same_problem(jp, tp):
     np.testing.assert_array_equal(tp.opt_block(), jp.opt_block())
 
 
-@pytest.mark.parametrize("dense_c", [False, True])
+def _with_repeats(scene, seed=0):
+    """The scene's table with 40 of its observations given again at other
+    image points, in an order drawn from seed: (point, camera) keys that
+    repeat, whose relative order only a stable sort keeps."""
+    rng = np.random.RandomState(seed)
+    k = rng.choice(len(scene["pts_ind"]), 40, replace=False)
+    pts_ind = np.concatenate([scene["pts_ind"], scene["pts_ind"][k]])
+    cam_ind = np.concatenate([scene["cam_ind"], scene["cam_ind"][k]])
+    pts2d = np.concatenate([scene["pts2d"], scene["pts2d"][k] + rng.uniform(1, 2, (40, 2))])
+    order = rng.permutation(len(pts_ind))
+    return dict(scene, pts_ind=pts_ind[order], cam_ind=cam_ind[order], pts2d=pts2d[order])
+
+
+@pytest.mark.parametrize("dense_c,table", [pytest.param(False, "demo", id="False"),
+                                           pytest.param(True, "demo", id="True"),
+                                           pytest.param(False, "repeats", id="repeats")])
 @pytest.mark.parametrize("d", [{}, {"n_cam_fix": 2, "n_pts_fix": 7, "ref_cam_weight": 3.0,
                                    "correction_params": ["R", "T"]}])
-def test_baparams_match_jax(dense_c, d):
+def test_baparams_match_jax(dense_c, table, d):
+    """Both constructors as in JAX; from_obs_table on a table whose keys
+    repeat keeps np.lexsort's order."""
     scene = jax_scene(n_cam=8, n_pts=400, seed=1)
+    if table == "repeats":
+        scene = _with_repeats(scene)
+        order = np.lexsort((scene["cam_ind"], scene["pts_ind"]))
     jp, tp = both_problems(scene, dense_c=dense_c, d=d)
     _assert_same_problem(jp, tp)
+    if table == "repeats":
+        np.testing.assert_array_equal(tparams.point_major_order(scene["pts_ind"],
+                                                                scene["cam_ind"]), order)
+        np.testing.assert_array_equal(tp.pts2d, scene["pts2d"][order])
 
 
-def test_baparams_reduce_matches_jax():
-    """The C-matrix constructor's reduce pass: a camera with no observation
-    and tracks seen only by frozen cameras are dropped, as in JAX."""
+def _reduced_problems():
+    """The C-matrix constructor on a scene with a camera that observes
+    nothing and 20 tracks seen by the frozen camera only: (JAX, port)."""
     from sat_bundleadjust_tpu.ba.params import BAParams as JBAParams
 
     from sat_bundleadjust_tpu_torch import convert
@@ -69,20 +94,38 @@ def test_baparams_reduce_matches_jax():
     jp = JBAParams(C, scene["pts3d"], cams, "rpc", pairs, centers, d)
     tp = tparams.BAParams(C, scene["pts3d"], convert.rpc_list_from_arrays(rpc_arrays(cams)),
                           "rpc", pairs, centers, d)
+    return jp, tp
+
+
+def test_baparams_reduce_matches_jax():
+    """The C-matrix constructor's reduce pass: a camera with no observation
+    and tracks seen only by frozen cameras are dropped, as in JAX."""
+    jp, tp = _reduced_problems()
     assert tp.n_cam == 6 and tp.n_pts == 280
     _assert_same_problem(jp, tp)
 
 
-def test_reconstruct_vars_matches_jax():
-    scene = jax_scene(n_cam=6, n_pts=200, seed=5)
-    jp, tp = both_problems(scene, dense_c=True, d={"correction_params": ["R", "T"]})
+@pytest.mark.parametrize("problem", ["demo", "reduced"])
+def test_reconstruct_vars_matches_jax(problem):
+    """The answer in the original indexing, as in JAX; on the reduced
+    problem the points and cameras go back to positions that are not their
+    own (pts_prev_indices and cam_prev_indices are not the identity)."""
+    if problem == "demo":
+        scene = jax_scene(n_cam=6, n_pts=200, seed=5)
+        jp, tp = both_problems(scene, dense_c=True, d={"correction_params": ["R", "T"]})
+        n_pts, n_cam = jp.n_pts + 3, jp.n_cam
+    else:
+        jp, tp = _reduced_problems()
+        n_pts, n_cam = 300, 7
+        assert not np.array_equal(tp.pts_prev_indices, np.arange(tp.n_pts))
     rng = np.random.RandomState(0)
     cam = jp.opt_block() + 1e-5 * rng.randn(*jp.opt_block().shape)
     pts = jp.pts3d + rng.randn(*jp.pts3d.shape)
-    init = np.zeros((jp.n_pts + 3, 3))
-    pj, cj = jp.reconstruct_vars(cam, pts, init, list(range(jp.n_cam)))
+    init = rng.randn(n_pts, 3)
+    pj, cj = jp.reconstruct_vars(cam, pts, init, list(range(n_cam)))
     pt, ct = tp.reconstruct_vars(torch.as_tensor(cam), torch.as_tensor(pts), init,
-                                 list(range(tp.n_cam)))
+                                 list(range(n_cam)))
+    assert len(ct) == len(cj) == n_cam
     np.testing.assert_array_equal(pt, pj)
     for a, b in zip(ct, cj):
         np.testing.assert_array_equal(a, b)
@@ -149,15 +192,41 @@ def test_index_tables_match_jax(seed, obs_per_pt):
     assert tlm.build_obs_at(*dup, N, M) is None and jlm.build_obs_at(*dup, N, M) is None
 
 
-def test_build_problem_matches_jax():
-    """The port's LMProblem holds JAX's tables; the kernel's two layouts are
-    int32 and every other index table int64."""
+def _case_scene(case):
+    """The scene of a test_build_problem_matches_jax case: the demo's table
+    with ragged tracks and cameras (150 observations dropped), a camera with
+    no observation, repeated (point, camera) keys, no observation at all,
+    or frozen cameras and points."""
     scene = jax_scene(n_cam=8, n_pts=400, seed=6)
-    jp, tp = both_problems(scene)
+    rng = np.random.RandomState(6)
+    keep = np.ones(len(scene["pts_ind"]), bool)
+    if case == "ragged":
+        keep[rng.choice(len(keep), 150, replace=False)] = False
+    elif case == "unobserved_camera":
+        keep = scene["cam_ind"] != 3
+    elif case == "empty":
+        keep[:] = False
+    elif case == "repeats":
+        return _with_repeats(scene)
+    return dict(scene, **{k: scene[k][keep] for k in ("pts_ind", "cam_ind", "pts2d")})
+
+
+@pytest.mark.parametrize("case", ["demo", "ragged", "unobserved_camera", "repeats", "empty",
+                                  "frozen"])
+def test_build_problem_matches_jax(case):
+    """The port's LMProblem, its index tables built by torch operations
+    (ops/lm.problem_tables, here on CPU tensors), holds JAX's tables and the
+    numpy builders'; the kernel's two layouts are int32 and every other
+    index table int64."""
+    d = {"n_cam_fix": 2, "n_pts_fix": 7} if case == "frozen" else None
+    jp, tp = both_problems(_case_scene(case), d=d)
     jprob, jmode = jsolver.build_problem(jp)
     tprob, tmode = tsolver.build_problem(tp, "cpu")
     assert tmode == jmode == "dense"
     assert tsolver.build_problem(tp, "cpu", "cg")[1] == "cg"
+    assert_same_problem(tprob, numpy_problem(tp, "cpu"))
+    assert (tprob.obs_at is None) == (case == "repeats")
+    assert (tprob.cam_ind_pt is None) == (case == "empty")
     for name in tlm.LMProblem._fields:
         a, b = getattr(tprob, name), getattr(jprob, name)
         assert (a is None) == (b is None), name

@@ -132,9 +132,12 @@ def test_the_lm_solve_keeps_its_host_reads_per_span(recorder):
         p.reconstruct_vars(cam, pts, p.pts3d, p.cameras)
     spans = profiling.spans()
     names = set(_names(spans))
-    assert {"ba.params", "ba.params.lexsort", "ba.params.cameras", "ba.params.stack_rpcs",
-            "ba.solver.init", "ba.make_fns", "ba.build_problem", "ba.solve", "lm.solve",
-            "lm.cg_read", "lm.result_read", "ba.reconstruct", "ba.reconstruct.points"} <= names
+    assert {"ba.params", "ba.params.sort", "ba.params.cameras", "ba.params.stack_rpcs",
+            "ba.solver.init", "ba.upload", "ba.make_fns", "ba.build_problem", "ba.solve",
+            "lm.solve", "lm.cg_read", "lm.result_read", "ba.reconstruct",
+            "ba.reconstruct.points"} <= names
+    init = [s for s in spans if s[2] == "ba.solver.init"][0]
+    assert init[5] == {"tables_on": "cpu", "h2d_bytes": 0}
     solve = [s for s in spans if s[2] == "lm.solve"][0]
     assert solve[5]["host_syncs"] == info["host_syncs"] > 0
     assert solve[5]["iterations"] == info["iterations"]
