@@ -3,14 +3,22 @@
 Counterpart of `sat_bundleadjust_tpu/ba/outliers.py`: per-camera elbow
 thresholds on the sorted error curve, removal of the flagged observations,
 track re-filtering (>= 2 observations and a triangulation pair),
-re-triangulation and parameter rebuild. Host-side numpy between the two
-solves, except the re-triangulation, which runs on `device`.
+re-triangulation and parameter rebuild. `rm_outliers` does all of it on
+the observation table, on `device`, with no array of cameras x tracks: the
+thresholds of every camera at once (`camera_thresholds`), the pair test and
+the re-triangulation's duos by a key lookup of each track's camera pairs
+(`ops/triangulate.py`), the rebuild through `BAParams.from_obs_table`. The
+numpy functions of the dense C path (`get_elbow_value`,
+`compute_obs_to_remove`, `filter_C_using_pairs_to_triangulate`) stay as the
+tests' reference.
 """
 
 import numpy as np
+import torch
 
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.ba.params import BAParams
+from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
 def get_elbow_value(err, max_outliers_percent=20, verbose=False):
@@ -77,58 +85,137 @@ def compute_obs_to_remove(err, p: BAParams, predef_thr=None, min_thr=1.0,
     return C_new, cam_thr, int(np.sum(to_rm))
 
 
-def reset_ba_params_after_outlier_removal(C_new, p: BAParams, verbose=True, device=None):
-    """Re-filter tracks, re-triangulate and rebuild the parameters."""
-    from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
+def camera_thresholds(err, cam_ind, n_cam, min_thr=1.0, max_outliers_percent=20):
+    """Each camera's threshold as compute_obs_to_remove sets it (elbow,
+    success, min_thr), for all cameras at once on err's device: (n_cam,)
+    float64, inf for a camera without observations. err (K,) float32 or
+    float64, cam_ind (K,) int64. The elbow is get_elbow_value's point
+    furthest from the chord (the first of equals), the percentile numpy's
+    linear one, in err's dtype as numpy computes it."""
+    dev, dt, f64 = err.device, err.dtype, torch.float64
+    K = err.numel()
+    if K == 0:
+        return torch.full((n_cam,), float("inf"), dtype=f64, device=dev)
+    order = torch.sort(err, stable=True).indices
+    order = order[torch.sort(cam_ind[order], stable=True).indices]
+    vals, cam = err[order], cam_ind[order]  # each camera's errors, sorted
+    n = torch.bincount(cam_ind, minlength=n_cam)
+    start = torch.cumsum(n, 0) - n
+    rank = torch.arange(K, device=dev) - start[cam]
+    first = torch.clamp(start, max=K - 1)
+    last = torch.clamp(start + n - 1, 0, K - 1)
 
-    obs_per_track = np.sum(~np.isnan(C_new), axis=0)
-    keep1 = np.where(obs_per_track >= 4)[0]  # >= 2 (col, row) observations
-    C_new = C_new[:, keep1]
+    # the elbow: distance of (rank, value) from the chord, in float64
+    v = vals.to(f64)
+    lx, ly = (n - 1).to(f64), v[last] - v[first]
+    norm = torch.sqrt(lx * lx + ly * ly)
+    ux, uy = (lx / norm)[cam], (ly / norm)[cam]
+    fx, fy = rank.to(f64), v - v[first][cam]
+    proj = fx * ux + fy * uy
+    dx, dy = fx - proj * ux, fy - proj * uy
+    dist = torch.sqrt(dx * dx + dy * dy)
+    far = torch.full((n_cam,), -float("inf"), dtype=f64, device=dev).scatter_reduce(
+        0, cam, dist, "amax")
+    at = torch.full((n_cam,), K, dtype=torch.int64, device=dev).scatter_reduce(
+        0, cam, torch.where(dist == far[cam], rank, K), "amin")
+    elbow = v[torch.clamp(start + at, max=K - 1)]
 
-    keep2 = filter_C_using_pairs_to_triangulate(C_new, p.pairs_to_triangulate)
-    C_new = C_new[:, keep2]
+    # np.percentile(err, 100 - max_outliers_percent), method "linear"
+    q = torch.tensor(100 - max_outliers_percent, dtype=dt) / torch.tensor(100, dtype=dt)
+    vi = (n - 1).to(dt) * q.to(dev)
+    lo = torch.floor(vi)
+    gamma = vi - lo
+    hi_ = torch.clamp(start + lo.long() + 1, max=K - 1)
+    a, b = vals[torch.clamp(start + lo.long(), 0, K - 1)], vals[hi_]
+    diff = b - a
+    pct = torch.where(gamma >= 0.5, b - diff * (1 - gamma), a + diff * gamma)
 
-    final_left = keep1[keep2]
-    n_pts_fix_new = int(np.sum(final_left < p.n_pts_fix))
-
-    pts3d_new = init_pts3d(C_new, p.cameras, p.cam_model, p.pairs_to_triangulate,
-                           device=device)
-    if n_pts_fix_new > 0:
-        prev_fixed = final_left[final_left < p.n_pts_fix]
-        pts3d_new[:n_pts_fix_new, :] = p.pts3d[prev_fixed, :]
-
-    new_p = BAParams(
-        C_new, pts3d_new, p.cameras, p.cam_model, p.pairs_to_triangulate, p.camera_centers,
-        {
-            "n_cam_fix": p.n_cam_fix,
-            "n_pts_fix": n_pts_fix_new,
-            "reduce": False,
-            "verbose": verbose,
-            "correction_params": p.cam_params_to_optimize,
-            "ref_cam_weight": p.ref_cam_weight,
-        },
-    )
-    new_p.pts_prev_indices = p.pts_prev_indices[final_left]
-    return new_p
+    success = (n >= 3) & (elbow >= pct.to(f64))
+    thr = torch.where(success, torch.clamp(elbow, min=float(min_thr)), v[last])
+    return torch.where(n > 0, thr, float("inf"))
 
 
 def rm_outliers(err, p: BAParams, predef_thr=None, min_thr=1.0, verbose=False,
                 reference_rounding=False, device=None):
     """Remove outlier observations of p given per-observation errors err;
-    returns the new BAParams (p itself when nothing is removed)."""
+    returns the new BAParams (p itself when nothing is removed).
+
+    On the observation table, for p built from C or from a table: the
+    per-camera thresholds (camera_thresholds, or predef_thr; with
+    reference_rounding compared as np.round(thr, 2)); the observations
+    above them removed; the tracks kept that have >= 2 observations left
+    and a listed pair of their cameras; those re-triangulated
+    (ops/triangulate.triangulate_table, on `device`; the first n_pts_fix
+    keep their points); the rebuild by BAParams.from_obs_table, with
+    n_pts_fix and pts_prev_indices carried as the C path carries them, and
+    the C of the kept table where p has a C. The `ba.outliers` span holds
+    the counts and the host's reads of the device (host_reads)."""
+    from sat_bundleadjust_tpu_torch.ops.triangulate import (host_read, pair_lookup,
+                                                            tracks_with_a_pair,
+                                                            triangulate_table, true_rows)
+
     device = resolve_device(device)
-    C_new, cam_thr, n_detected = compute_obs_to_remove(
-        err, p, predef_thr, min_thr, reference_rounding=reference_rounding
-    )
-    new_p = (reset_ba_params_after_outlier_removal(C_new, p, verbose=verbose, device=device)
-             if n_detected > 0 else p)
+    with span("ba.outliers", observations=p.n_obs, cameras=p.n_cam, tracks_in=p.n_pts,
+              host_reads=0) as outer:
+        reads = outer.attrs
+        pts_all = torch.as_tensor(np.asarray(p.pts_ind)).to(device).long()
+        cam_all = torch.as_tensor(np.asarray(p.cam_ind)).to(device).long()
+        err = torch.as_tensor(err).to(device)
+        with span("ba.outliers.thresholds"):
+            if predef_thr is None:
+                thr = camera_thresholds(err, cam_all, p.n_cam, min_thr)
+            else:
+                thr = torch.full((p.n_cam,), float(predef_thr), dtype=torch.float64,
+                                 device=device)
+            cut = torch.round(thr, decimals=2) if reference_rounding else thr
+        with span("ba.outliers.remove"):
+            rows = true_rows(err.to(torch.float64) <= cut[cam_all], reads)
+            n_detected = p.n_obs - rows.numel()
+        if n_detected == 0:
+            new_p = p
+        else:
+            with span("ba.outliers.filter"):
+                pts, cam = pts_all[rows], cam_all[rows]
+                lookup = pair_lookup(p.pairs_to_triangulate, p.n_cam, device)
+                keep = (torch.bincount(pts, minlength=p.n_pts) >= 2) & tracks_with_a_pair(
+                    pts, cam, p.n_pts, p.n_cam, lookup, reads)
+                rows = rows[true_rows(keep[pts], reads)]
+                final_left = true_rows(keep, reads)
+                pts, cam = (torch.cumsum(keep, 0) - 1)[pts_all[rows]], cam_all[rows]
+            n_kept = final_left.numel()
+            with span("ba.outliers.triangulate", tracks=n_kept) as tri:
+                pts2d = torch.as_tensor(np.asarray(p.pts2d, np.float64)).to(device)[rows]
+                pts3d, tri.attrs["duos"] = triangulate_table(
+                    pts, cam, pts2d, n_kept, p.n_cam, p.cameras, p.cam_model,
+                    p.pairs_to_triangulate, rpcs=p.rpcs, lookup=lookup, reads=reads)
+                rows, final_left, pts, pts3d = (host_read(x, reads)
+                                                for x in (rows, final_left, pts, pts3d))
+            with span("ba.outliers.rebuild"):
+                fixed = final_left[final_left < p.n_pts_fix]
+                pts3d[: len(fixed)] = p.pts3d[fixed]
+                new_p = BAParams.from_obs_table(
+                    pts.astype(np.int32), p.cam_ind[rows], p.pts2d[rows], pts3d, p.cameras,
+                    p.cam_model, p.camera_centers, p.pairs_to_triangulate,
+                    {
+                        "n_cam_fix": p.n_cam_fix,
+                        "n_pts_fix": len(fixed),
+                        "verbose": verbose,
+                        "correction_params": p.cam_params_to_optimize,
+                        "ref_cam_weight": p.ref_cam_weight,
+                    },
+                )
+                new_p.pts_prev_indices = p.pts_prev_indices[final_left]
+                if p.C is not None:
+                    new_p.C = new_p.dense_C()
+        cam_thr = host_read(thr, reads).tolist() if verbose else None
+        outer.attrs.update(removed=n_detected, tracks_out=new_p.n_pts)
     if verbose:
-        n_obs_in = len(p.cam_ind)
-        n_tracks_in = p.C.shape[1]
-        n_tracks_rm = n_tracks_in - new_p.C.shape[1]
+        if new_p is not p:
+            new_p.print_definition()
+        n_tracks_rm = p.n_pts - new_p.n_pts
         print("Reprojection error threshold per camera: {} px".format(
             [round(t, 2) for t in cam_thr]))
         print("Deleted {} observations ({:.2f}%) and {} tracks ({:.2f}%)".format(
-            n_detected, n_detected / max(n_obs_in, 1) * 100,
-            n_tracks_rm, n_tracks_rm / max(n_tracks_in, 1) * 100))
+            n_detected, n_detected / max(p.n_obs, 1) * 100,
+            n_tracks_rm, n_tracks_rm / max(p.n_pts, 1) * 100))
     return new_p

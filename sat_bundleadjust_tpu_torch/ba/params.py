@@ -144,11 +144,23 @@ class BAParams:
         self._set_param_layout()
 
         if self.verbose:
-            print("\nDefining bundle adjustment parameters...")
-            print("     - cam_params_to_optimize: {}".format(self.cam_params_to_optimize))
-            print("{} 3d points, {} fixed and {} to be optimized".format(self.n_pts, self.n_pts_fix, self.n_pts_opt))
-            print("{} cameras, {} fixed and {} to be optimized".format(self.n_cam, self.n_cam_fix, self.n_cam_opt))
-            print("{} parameters to optimize per camera\n".format(self.n_params))
+            self.print_definition()
+
+    def print_definition(self):
+        """The problem's sizes, as the constructor prints them when verbose."""
+        print("\nDefining bundle adjustment parameters...")
+        print("     - cam_params_to_optimize: {}".format(self.cam_params_to_optimize))
+        print("{} 3d points, {} fixed and {} to be optimized".format(self.n_pts, self.n_pts_fix, self.n_pts_opt))
+        print("{} cameras, {} fixed and {} to be optimized".format(self.n_cam, self.n_cam_fix, self.n_cam_opt))
+        print("{} parameters to optimize per camera\n".format(self.n_params))
+
+    def dense_C(self):
+        """The (2M, N) correspondence matrix of the observation table (NaN
+        where unobserved)."""
+        C = np.full((2 * self.n_cam, self.n_pts), np.nan)
+        C[2 * self.cam_ind, self.pts_ind] = self.pts2d[:, 0]
+        C[2 * self.cam_ind + 1, self.pts_ind] = self.pts2d[:, 1]
+        return C
 
     def _set_param_layout(self):
         """Number of optimized parameters, COMMON_K's seeding, frozen-entity

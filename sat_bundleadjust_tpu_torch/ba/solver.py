@@ -26,6 +26,11 @@ from sat_bundleadjust_tpu_torch.ops.project import affine_from_params, perspecti
 from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 
+# the pipeline's soft-L1 round (clean_outliers): the ls_params of
+# BundleAdjustmentPipeline.run_ba_softL1, before the outlier pass and its L2 round
+SOFT_L1_ROUND = {"loss": "soft_l1", "f_scale": 1.0, "max_iter": 300}
+
+
 def init_optimization_config(config=None):
     """Defaults identical to the reference's."""
     keys = ["loss", "ftol", "xtol", "f_scale", "max_iter", "verbose"]

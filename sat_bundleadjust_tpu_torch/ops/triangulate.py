@@ -5,10 +5,15 @@ track) observation duo across all stereo pairs is triangulated in one
 batch: with RPC cameras by the reference's altitude search (secant along
 the epipolar curve, hstep 1, stop at |lambda| < 1e-5, at most 24 steps),
 with converged duos frozen; with 3x4 matrix cameras (affine, perspective)
-by the linear (DLT) method, one batched 4x4 SVD. The per-track mean over
-pairs is a segment mean on the host.
+by the linear (DLT) method, one batched 4x4 SVD. The duos come from the
+observation table on the device, by a key lookup of each track's camera
+pairs in the pairs list (`observation_duos`), and the per-track mean is a
+segment sum whose order does not depend on the device (`segment_mean`).
+`build_triangulation_batch` (the duos of a dense C, a loop over the pairs)
+stays as the tests' reference.
 """
 
+import itertools
 import os
 
 import numpy as np
@@ -16,7 +21,8 @@ import torch
 
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.models import ellipsoid
-from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, rpc_localization, rpc_projection, stack_rpcs
+from sat_bundleadjust_tpu_torch.models.rpc import (index_rpc, map_rpc, rpc_localization,
+                                                   rpc_projection, stack_rpcs)
 from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 RPCH_ITERS = 24
@@ -25,28 +31,48 @@ RPCH_LAMBDA_STOP = 1e-5
 CHUNK = 500_000  # duos per batch (SATBA_TRIANG_CHUNK): bounds the device temporaries
 
 
+def count_read(reads):
+    """One read of the device, added to reads["host_reads"] where reads (a
+    span's attributes) is given."""
+    if reads is not None:
+        reads["host_reads"] = reads.get("host_reads", 0) + 1
+
+
+def host_read(t, reads=None):
+    """t on the host (a number, or a numpy array): a read of the device,
+    counted in reads (count_read)."""
+    count_read(reads)
+    return t.item() if t.dim() == 0 else t.cpu().numpy()
+
+
+def true_rows(mask, reads=None):
+    """The indices of mask's true entries, (n,) int64: a read of the device
+    (their count), counted in reads (count_read)."""
+    count_read(reads)
+    return torch.nonzero(mask)[:, 0]
+
+
 def _pair_correspondence(rpc_a, rpc_b, x, y, h):
     """Pixel (x=col, y=row) of image a at altitude h, seen in image b."""
     lon, lat = rpc_localization(rpc_a, x, y, h)
     return rpc_projection(rpc_b, lon, lat, h)
 
 
-def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b):
+def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b, reads=None):
     """Triangulate matched pixels (..., 2) between RPC cameras a and b
     (fields batched like the points). Returns pts3d (..., 3) ECEF and the
     residual distance in image b (px). Stops early once every duo has
     converged (one host sync per step: the `triangulate.rpc` span's
-    `host_reads`)."""
+    `host_reads`, also counted in reads where given)."""
     xa, ya = pts_a[..., 0], pts_a[..., 1]
     xb, yb = pts_b[..., 0], pts_b[..., 1]
     h = torch.zeros_like(xa)
     err = torch.zeros_like(xa)
     done = torch.zeros_like(xa, dtype=torch.bool)
     with span("triangulate.rpc", duos=int(xa.numel())) as loop:
-        reads = 0
         for _ in range(RPCH_ITERS):
-            reads += 1
-            if bool(done.all()):
+            count_read(reads)
+            if host_read(done.all(), loop.attrs):
                 break
             px, py = _pair_correspondence(rpc_a, rpc_b, xa, ya, h)
             qx, qy = _pair_correspondence(rpc_a, rpc_b, xa, ya, h + RPCH_HSTEP)
@@ -59,7 +85,6 @@ def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b):
             h = torch.where(done, h, h + lam * RPCH_HSTEP)
             err = torch.where(done, err, new_err)
             done = done | (lam.abs() < RPCH_LAMBDA_STOP)
-        loop.attrs["host_reads"] = reads
     lon, lat = rpc_localization(rpc_a, xa, ya, h)
     return ellipsoid.latlon_to_ecef_arr(lat, lon, h), err
 
@@ -108,37 +133,136 @@ def build_triangulation_batch(C, pairs_to_triangulate):
     }
 
 
-def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, device=None):
-    """One 3-D point per track of C: the mean of its pairwise
-    triangulations ((N, 3) numpy, zeros for tracks without a pair).
-    cameras: RPCModels (cam_model "rpc") or 3x4 matrices."""
-    dev = resolve_device(device)
-    n_pts = C.shape[1]
-    with span("triangulate.batch"):
-        batch = build_triangulation_batch(C, pairs_to_triangulate)
-    if batch is None:
-        return np.zeros((n_pts, 3))
+def pair_lookup(pairs_to_triangulate, n_cam, device):
+    """The listed pairs with both cameras below n_cam, for a key lookup:
+    (keys, first) on device, keys = min(i, j) * n_cam + max(i, j) sorted
+    (stably, so a pair listed twice keeps its order) and first = the first
+    camera of each listed pair in that order."""
+    # flattened without a Python object per pair: ~470 000 pairs at 1000 views
+    pairs = np.fromiter(itertools.chain.from_iterable(pairs_to_triangulate), np.int64,
+                        count=2 * len(pairs_to_triangulate)).reshape(-1, 2)
+    pairs = pairs[(pairs < n_cam).all(axis=1)]
+    keys = pairs.min(axis=1) * n_cam + pairs.max(axis=1)
+    order = np.argsort(keys, kind="stable")
+    return (torch.as_tensor(keys[order], device=device),
+            torch.as_tensor(pairs[order, 0], device=device))
+
+
+def _candidates(pts_ind, cam_ind, n_pts, n_cam, lookup, reads=None):
+    """Every unordered duo (u, v), u <= v, of the observations of one
+    track, in (u, v) order, and the listed pairs of its cameras: (u, v, lo,
+    n), the listed pairs being lookup's [lo, lo + n). The table is sorted by
+    point (pts_ind non-decreasing). One host read (the duos' count),
+    counted in reads."""
+    dev = pts_ind.device
+    K = pts_ind.numel()
+    end = torch.cumsum(torch.bincount(pts_ind, minlength=n_pts), 0)[pts_ind]
+    rows = torch.arange(K, device=dev)
+    per_row = end - rows  # v in [u, end of u's track)
+    total = host_read(per_row.sum(), reads)
+    u = torch.repeat_interleave(rows, per_row, output_size=total)
+    v = u + torch.arange(total, device=dev) - (torch.cumsum(per_row, 0) - per_row)[u]
+    ca, cb = cam_ind[u], cam_ind[v]
+    key = torch.minimum(ca, cb) * n_cam + torch.maximum(ca, cb)
+    keys = lookup[0]
+    lo = torch.searchsorted(keys, key)
+    return u, v, lo, torch.searchsorted(keys, key, right=True) - lo
+
+
+def tracks_with_a_pair(pts_ind, cam_ind, n_pts, n_cam, lookup, reads=None):
+    """(n_pts,) bool: the tracks of the table (sorted by point) that some
+    listed pair of their cameras observes (for the pair (i, i), a track
+    that camera i observes), as filter_C_using_pairs_to_triangulate's test
+    m^T P m > 0. lookup: pair_lookup's; its read counted in reads."""
+    u, _, _, n = _candidates(pts_ind, cam_ind, n_pts, n_cam, lookup, reads)
+    hits = torch.zeros(n_pts, dtype=torch.int64, device=pts_ind.device)
+    return hits.index_add_(0, pts_ind[u], n) > 0
+
+
+def observation_duos(pts_ind, cam_ind, n_pts, n_cam, lookup, reads=None):
+    """The (pair, track) observation duos of the table (sorted by point),
+    from it by a key lookup: for every listed pair (i, j) and every track
+    that both cameras observe, the rows (a, b) of its observations in i and
+    in j, as build_triangulation_batch's duos. Ordered by track, then by
+    (u, v) within the track, then as listed. Returns (a, b) (D,) int64;
+    its two reads counted in reads."""
+    u, v, lo, n = _candidates(pts_ind, cam_ind, n_pts, n_cam, lookup, reads)
+    total = host_read(n.sum(), reads)
+    c = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n, output_size=total)
+    listed = lo[c] + torch.arange(total, device=n.device) - (torch.cumsum(n, 0) - n)[c]
+    u, v = u[c], v[c]
+    forward = lookup[1][listed] == cam_ind[u]
+    return torch.where(forward, u, v), torch.where(forward, v, u)
+
+
+def segment_mean(values, seg, n_seg, reads=None):
+    """Mean of values (D, ...) over segments seg (D,), sorted, (n_seg, ...)
+    (zeros for an empty segment), summed in the values' order whatever the
+    device: the k-th value of every segment is added in the k-th
+    index_add_, whose targets are distinct (one host read, the count of
+    each k, counted in reads)."""
+    counts = torch.bincount(seg, minlength=n_seg)
+    slot = torch.arange(seg.numel(), device=seg.device) - (torch.cumsum(counts, 0) - counts)[seg]
+    order = torch.sort(slot, stable=True).indices
+    sums = torch.zeros((n_seg,) + values.shape[1:], dtype=values.dtype, device=values.device)
+    start = 0
+    for n in host_read(torch.bincount(slot), reads).tolist():
+        part = order[start:start + n]
+        sums.index_add_(0, seg[part], values[part])
+        start += n
+    shape = (n_seg,) + (1,) * (values.dim() - 1)
+    return sums / torch.clamp(counts, min=1).to(values.dtype).reshape(shape)
+
+
+def triangulate_table(pts_ind, cam_ind, pts2d, n_pts, n_cam, cameras, cam_model,
+                      pairs_to_triangulate, rpcs=None, lookup=None, reads=None):
+    """One 3-D point per track of an observation table on a device (tensors
+    sorted by point; n_cam cameras): the mean of its duos' triangulations
+    (observation_duos). Returns ((n_pts, 3) float64 on the table's device,
+    zeros for a track without a duo; the number of duos). cameras:
+    RPCModels (cam_model "rpc"; or their stacked fields `rpcs`, on any
+    device) or 3x4 matrices. lookup: pair_lookup's of the pairs, where the
+    caller has it. Its reads of the device are counted in reads."""
+    dev = pts_ind.device
+    if lookup is None:
+        lookup = pair_lookup(pairs_to_triangulate, n_cam, dev)
+    with span("triangulate.duos") as duos:
+        a, b = observation_duos(pts_ind, cam_ind, n_pts, n_cam, lookup, reads)
+        duos.attrs["duos"] = B = int(a.numel())
+    if B == 0:
+        return torch.zeros((n_pts, 3), dtype=torch.float64, device=dev), 0
     if cam_model == "rpc":
-        rpcs = stack_rpcs(cameras, dev)
+        rpcs = stack_rpcs(cameras, dev) if rpcs is None else map_rpc(lambda f: f.to(dev), rpcs)
     else:
         mats = torch.as_tensor(np.stack([np.asarray(c, np.float64) for c in cameras]),
                                device=dev)
-    B = int(batch["track"].shape[0])
     chunk = int(os.environ.get("SATBA_TRIANG_CHUNK", CHUNK))
-    sums = np.zeros((n_pts, 3))
+    pts3d = torch.empty((B, 3), dtype=torch.float64, device=dev)
     with span("triangulate.loop", duos=B, chunks=-(-B // chunk)):
         for s in range(0, B, chunk):
-            sl = slice(s, min(s + chunk, B))
-            cam_a = torch.as_tensor(batch["cam_a"][sl], dtype=torch.int64, device=dev)
-            cam_b = torch.as_tensor(batch["cam_b"][sl], dtype=torch.int64, device=dev)
-            pts_a = torch.as_tensor(batch["pts_a"][sl], dtype=torch.float64, device=dev)
-            pts_b = torch.as_tensor(batch["pts_b"][sl], dtype=torch.float64, device=dev)
+            a_s, b_s = a[s:s + chunk], b[s:s + chunk]
+            cam_a, cam_b = cam_ind[a_s], cam_ind[b_s]
             if cam_model == "rpc":
-                pts3d, _ = rpc_triangulation(index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b),
-                                             pts_a, pts_b)
+                pts3d[s:s + chunk], _ = rpc_triangulation(
+                    index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b), pts2d[a_s], pts2d[b_s],
+                    reads)
             else:
-                pts3d = linear_triangulation(mats[cam_a], mats[cam_b], pts_a, pts_b)
-            # deterministic host-side segment sum, in duo order
-            np.add.at(sums, batch["track"][sl], pts3d.cpu().numpy())
-    counts = np.bincount(batch["track"], minlength=n_pts).astype(np.float64)
-    return sums / np.maximum(counts, 1.0)[:, None]
+                pts3d[s:s + chunk] = linear_triangulation(mats[cam_a], mats[cam_b],
+                                                          pts2d[a_s], pts2d[b_s])
+    with span("triangulate.mean"):
+        return segment_mean(pts3d, pts_ind[a], n_pts, reads), B
+
+
+def init_pts3d(C, cameras, cam_model, pairs_to_triangulate, verbose=False, device=None):
+    """One 3-D point per track of C: the mean of its pairwise
+    triangulations ((N, 3) numpy, zeros for tracks without a pair).
+    cameras: RPCModels (cam_model "rpc") or 3x4 matrices. C's observations
+    go to the device as a table (triangulate_table)."""
+    dev = resolve_device(device)
+    n_cam, n_pts = C.shape[0] // 2, C.shape[1]
+    with span("triangulate.batch"):
+        pt, cam = np.nonzero(~np.isnan(C[::2]).T)  # point-major
+        pts2d = np.stack([C[2 * cam, pt], C[2 * cam + 1, pt]], axis=1)
+        table = [torch.as_tensor(x, device=dev) for x in (pt, cam, pts2d)]
+    pts3d, _ = triangulate_table(*table, n_pts, n_cam, cameras, cam_model, pairs_to_triangulate)
+    return pts3d.cpu().numpy()

@@ -31,7 +31,7 @@ from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.ba import outliers as ba_outliers
 from sat_bundleadjust_tpu_torch.ba import rpcfit as ba_rpcfit
 from sat_bundleadjust_tpu_torch.ba.params import BAParams
-from sat_bundleadjust_tpu_torch.ba.solver import BASolver, run_ba_optimization
+from sat_bundleadjust_tpu_torch.ba.solver import SOFT_L1_ROUND, BASolver, run_ba_optimization
 from sat_bundleadjust_tpu_torch.models import cameras as cam_utils
 from sat_bundleadjust_tpu_torch.models.ellipsoid import latlon_to_ecef_np
 from sat_bundleadjust_tpu_torch.models.rpc import write_rpc_file
@@ -321,8 +321,7 @@ class BundleAdjustmentPipeline:
         return out
 
     def run_ba_softL1(self):
-        ls_params_L1 = {"loss": "soft_l1", "f_scale": 1.0, "max_iter": 300}
-        _, self.ba_sol, self.init_e, self.ba_e, iters = self._run_ba(ls_params_L1, verbose=True)
+        _, self.ba_sol, self.init_e, self.ba_e, iters = self._run_ba(SOFT_L1_ROUND, verbose=True)
         self.ba_iters += iters
 
     def run_ba_L2(self):

@@ -14,8 +14,9 @@ import ctypes
 import os
 
 import numpy as np
+import torch
 
-from sat_bundleadjust_tpu_torch.ba.outliers import filter_C_using_pairs_to_triangulate
+from sat_bundleadjust_tpu_torch.ops.triangulate import pair_lookup, tracks_with_a_pair
 
 _NATIVE_LIB = None
 _NATIVE_TRIED = False
@@ -109,7 +110,11 @@ def feature_tracks_from_pairwise_matches(features, pairwise_matches, pairs_to_tr
     C_v2[im_i, t_idx] = kp_i
     C_v2[im_j, t_idx] = kp_j
 
-    keep = filter_C_using_pairs_to_triangulate(C, pairs_to_triangulate)
+    # the tracks that a listed pair of their cameras observes, by the table's
+    # key lookup (ba/outliers.filter_C_using_pairs_to_triangulate's test)
+    pt, cam = (torch.as_tensor(a) for a in np.nonzero(~np.isnan(C[::2]).T))
+    keep = tracks_with_a_pair(pt, cam, n_tracks, n_cams,
+                              pair_lookup(pairs_to_triangulate, n_cams, "cpu")).numpy()
     return C[:, keep], C_v2[:, keep]
 
 

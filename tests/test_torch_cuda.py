@@ -765,6 +765,36 @@ def test_stage_tables_built_on_the_card(cuda):
     assert info["iterations"] == info_h["iterations"] > 1
 
 
+@pytest.mark.cuda
+def test_outlier_pass_on_the_card_keeps_the_cpu_table(cuda):
+    """The outlier pass on the observation table (ba/outliers.rm_outliers)
+    on the card and on the CPU, from the same table and errors: the kept
+    table bit for bit, the points within the CPU tests' 1e-4 m (the RPC
+    triangulation's transcendentals differ in their last bits); the
+    thresholds of every camera bit for bit at rpc_ba1000's size too."""
+    from sat_bundleadjust_tpu_torch.ba import outliers
+
+    rng = np.random.RandomState(3)
+    for n_cam, n_obs in ((1000, 800_000), (7, 5000)):
+        err = (np.abs(rng.randn(n_obs)) * 0.3
+               + (rng.rand(n_obs) < 0.02) * rng.uniform(10, 30, n_obs)).astype(np.float32)
+        cam = torch.as_tensor(rng.randint(0, n_cam, n_obs))
+        thr = [outliers.camera_thresholds(torch.as_tensor(err, device=d), cam.to(d), n_cam)
+               for d in (cuda, torch.device("cpu"))]
+        assert torch.equal(thr[0].cpu(), thr[1])
+
+    scene = demo.make_scene_arrays(n_cam=100, n_pts=5000, obs_per_pt=4, seed=3, device=cuda)
+    p = demo.scene_to_baparams(scene)
+    p.pairs_to_triangulate = [(i, (i + d) % 100) for d in (1, 2, 3) for i in range(100)]
+    err = (np.abs(rng.randn(p.n_obs)) * 0.3
+           + (rng.rand(p.n_obs) < 0.02) * rng.uniform(10, 30, p.n_obs)).astype(np.float32)
+    card, host = (outliers.rm_outliers(err, p, device=d) for d in (cuda, "cpu"))
+    for name in ("pts_ind", "cam_ind", "pts2d", "pts_prev_indices"):
+        np.testing.assert_array_equal(getattr(card, name), getattr(host, name), err_msg=name)
+    assert card.n_pts_fix == host.n_pts_fix and 0 < card.n_obs < p.n_obs
+    np.testing.assert_allclose(card.pts3d, host.pts3d, rtol=0, atol=1e-4)
+
+
 def _failed_capture():
     """A child process's check: a solve whose Jacobians read the device from
     the host, which a capture refuses, raises. (An aborted capture leaves
