@@ -65,6 +65,10 @@ no result line, where CUDA is not available. It
      elementary functions and reductions of the stages on the same seeded
      inputs on both devices (the libraries' and the port's own), and slice
      C's tracks and BA rounds rerun with the CPU's keypoints for frame 0;
+     then csrc/sift_blur.cu's blur (r = 13) and 2x upsample at
+     rpc_date10.cli's batch (10 frames of 2000x2000 px), held bit for bit
+     against their plain versions and timed against their bounds and the
+     plain versions, and the pyramid's whole chain of blurs of that batch;
  11a. slice I: the single-image and single-pair entry points on slice C's
      frames: detect_tpu of frame 0 with a mask over the central half, which
      must give slice C's batched detection under that mask bit for bit;
@@ -233,6 +237,9 @@ SLICE_J_TIMEOUT_S = 300
 # (PR 10's chip run 2, H100 80GB HBM3, 700 W)
 NN2_F32_BEFORE_MS = {"nn2_batched": 20.8669, "nn2_single": 0.5224}
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+# csrc/sift_blur.cu's check: rpc_date10.cli's one batch, 10 frames of
+# 2000x2000 px (the first octave 10 x 4000 x 4000)
+SIFT_BLUR_BATCH = (10, 2000, 2000)
 
 
 def log(*args):
@@ -832,6 +839,7 @@ def slice_c(dev, counters):
     assert launches["nn2_batched_i8"] > 0, launches
     assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
     assert launches["schur_wz"] == soft["matvecs"] + l2["matvecs"] > 0, launches
+    assert launches["blur"] > 0 and launches["upsample2"] > 0, launches
     assert soft["reproj_before_mean"] > SLICE_C_REPROJ_BEFORE_MIN, soft["reproj_before_mean"]
     assert l2["reproj_after_mean"] < SLICE_C_REPROJ_AFTER_MAX, l2["reproj_after_mean"]
     return {"render_s": render_s, "keypoints": kp, "pairs": len(bundle["pairs_to_match"]),
@@ -1081,7 +1089,7 @@ def ptxas_summary(log_text):
 
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur)_[a-z0-9_]+?)(ILi(\d+)E)?E",
+        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur|sift)_[a-z0-9_]+?)(ILi(\d+)E)?E",
                       line)
         if m:
             name = m.group(1) + ("<{}>".format(m.group(3)) if m.group(3) else "")
@@ -1111,20 +1119,19 @@ def sift_stage_trace(image, dev, n_kp=1024):
 
     with torch.no_grad():
         im = sift._normalized_stack([image], torch.device(dev))
-        up = sift._upsample2(im)
-        rec("2x upsampling", "_upsample_axis (_fma)", up)
+        up = sift.upsample2(im)
+        rec("2x upsampling", "upsample2 (csrc/sift_blur.cu; _upsample_axis on the CPU)", up)
         sig_inc = torch.as_tensor(sift._sig_inc(sift.N_SPO), device=dev)
         taps = [sift._dynamic_taps(sig_inc[s], sift._MAX_BLUR_RADIUS)
                 for s in range(sift.N_SPO + 2)]
-        rec("blur taps", "_dynamic_taps (_exp_f32, sum, division)",
-            torch.stack([torch.stack(t) for t in taps]))
+        rec("blur taps", "_dynamic_taps (_exp_f32, sum, division)", torch.stack(taps))
         sigma_extra = float(np.sqrt(sift.SIGMA_MIN ** 2 - sift.SIGMA_IN ** 2) / sift.DELTA_MIN)
         ss = [sift._blur(up, sigma_extra)]
-        rec("blur", "_blur (_accumulate, fixed taps)", ss[0])
+        rec("blur", "blur, fixed taps (csrc/sift_blur.cu; _accumulate on the CPU)", ss[0])
         for s in range(sift.N_SPO + 2):
-            ss.append(sift._blur_dynamic(ss[-1], taps[s]))
+            ss.append(sift.blur(ss[-1], taps[s]))
         ss = torch.stack(ss, dim=1)[0]
-        rec("blur", "_blur_dynamic (_accumulate, traced taps)", ss)
+        rec("blur", "blur, traced taps (csrc/sift_blur.cu; _accumulate on the CPU)", ss)
         dog = ss[1:] - ss[:-1]
         rec("DoG", "subtraction", dog)
         rec("extrema", "max_pool3d", F.max_pool3d(dog[None, None], 3, stride=1,
@@ -1374,6 +1381,93 @@ def sift_device_check(dev, images, ft, c):
         r = rec[label]
         assert r["cpu"] > 100 and r["identical"], {k: v for k, v in r.items() if k != "stages"}
     assert rec["first_difference"] is None, rec["first_difference"]
+    return rec
+
+
+def check_sift_blur(dev):
+    """csrc/sift_blur.cu at rpc_date10.cli's batch: the 2x upsample of 10
+    frames of 2000x2000 px and the fixed-radius blur (r = 13) of the
+    10 x 4000 x 4000 first octave, each against its plain version on the
+    card (bit for bit) and timed (CUDA events) against its bound and the
+    plain version; then the pyramid's whole chain of blurs of that batch,
+    timed against its bound."""
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    B, h, w = SIFT_BLUR_BATCH
+    im = torch.rand((B, h, w), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    taps = sift._dynamic_taps(torch.as_tensor(sift._sig_inc(sift.N_SPO), device=dev)[0],
+                              sift._MAX_BLUR_RADIUS)
+    up = sift.upsample2(im)
+    same_up = bool(torch.equal(up.view(torch.int32), sift._upsample_plain(im).view(torch.int32)))
+    out = sift.blur(up, taps)
+    same_blur = bool(torch.equal(out.view(torch.int32), sift._blur_plain(up, taps).view(torch.int32)))
+    torch.cuda.synchronize()
+    rec = {"shape": {"B": B, "h": h, "w": w, "radius": sift._MAX_BLUR_RADIUS},
+           "bit_identical": {"upsample2": same_up, "blur": same_blur}}
+    n_in, n = im.numel(), up.numel()
+    k = taps.numel()
+    # least work: a blur level reads and writes each pixel once and makes
+    # 2 k fmas a pixel (2 flops each); the upsample reads the frames and
+    # writes 4 px each (a few flops a pixel, far below its bytes)
+    bounds = {
+        "blur": (8 * n / PEAK_BYTES_PER_S * 1e3, 4 * k * n / PEAK_F32_PER_S * 1e3),
+        "upsample2": (4 * (n_in + n) / PEAK_BYTES_PER_S * 1e3, 6 * n / PEAK_F32_PER_S * 1e3),
+    }
+    runs = {
+        "blur": (lambda: sift.blur(up, taps, out=out), lambda: sift._blur_plain(up, taps)),
+        "upsample2": (lambda: sift.upsample2(im), lambda: sift._upsample_plain(im)),
+    }
+    for name, (kernel, plain) in runs.items():
+        t_bytes, t_ops = bounds[name]
+        r = {"ms": cuda_ms(kernel, 20), "plain_ms": cuda_ms(plain, 1, rounds=3),
+             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else
+             "operations"}
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        rec[name] = r
+        log("sift {} [{} x {}x{} -> {}x{}{}]: bit-identical to the plain version {}; {:.4f} ms, "
+            "bound {:.4f} ms ({}; {:.1%} of it), plain version {:.1f} ms".format(
+                name, B, h, w, 2 * h, 2 * w, ", r = {}".format(rec["shape"]["radius"])
+                if name == "blur" else "", rec["bit_identical"][name], r["ms"], r["bound_ms"],
+                r["bound_by"], r["share_of_bound"], r["plain_ms"]))
+    # the pyramid's whole chain of one batch, as _pyramid_extrema runs it:
+    # the upsample, the first blur (host taps, r = 5), then 5 blurs an
+    # octave into its (B, S, H, W) slots, the next octave's first level
+    # copied from level 3
+    sigma_extra = float(np.sqrt(sift.SIGMA_MIN ** 2 - sift.SIGMA_IN ** 2) / sift.DELTA_MIN)
+    level_taps = [sift._dynamic_taps(torch.as_tensor(sift._sig_inc(sift.N_SPO), device=dev)[s],
+                                     sift._MAX_BLUR_RADIUS) for s in range(sift.N_SPO + 2)]
+    S = sift.N_SPO + 3
+
+    def chain():
+        first = sift._blur(sift.upsample2(im), sigma_extra)
+        for _o in range(8):
+            if min(first.shape[1:]) < 12:
+                break
+            ss = first.new_empty((B, S, *first.shape[1:]))
+            ss[:, 0] = first
+            for s in range(S - 1):
+                sift.blur(ss[:, s], level_taps[s], out=ss[:, s + 1])
+            first = ss[:, sift.N_SPO, ::2, ::2]
+
+    blurred, H, W = 0, 2 * h, 2 * w  # pixels of all blur levels
+    for o in range(8):
+        if min(H, W) < 12:
+            break
+        blurred += B * H * W * ((S - 1) + (o == 0))
+        H, W = (H + 1) // 2, (W + 1) // 2
+    launches = sift.blur.launches + sift.upsample2.launches
+    chain()
+    launches = sift.blur.launches + sift.upsample2.launches - launches
+    r = {"ms": cuda_ms(chain, 3), "launches": launches,
+         "bound_ms": (8 * blurred + 4 * (n_in + n)) / PEAK_BYTES_PER_S * 1e3}
+    rec["chain"] = r
+    log("sift pyramid's blurs of one batch [{} x {}x{}]: {} launches, {:.4f} ms, bound {:.4f} ms "
+        "(bytes: each level read and written once; {:.1%} of it)".format(
+            B, h, w, launches, r["ms"], r["bound_ms"], r["bound_ms"] / r["ms"]))
+    assert same_up and same_blur, rec["bit_identical"]
     return rec
 
 
@@ -1650,6 +1744,7 @@ def slice_d(dev, counters, images):
     assert launches["nn2_batched_i8"] > 0, launches
     assert launches["nn2_batched"] == 0 and launches["nn2_single"] == 0, launches
     assert launches["schur_wz"] == matvecs > 0, (launches, matvecs)
+    assert launches["blur"] > 0 and launches["upsample2"] > 0, launches
     assert max(refit["fit_error_max"]) < 1e-3, refit
     assert err_before > SLICE_C_REPROJ_BEFORE_MIN, err_before
     assert err_after < SLICE_C_REPROJ_AFTER_MAX, err_after
@@ -2264,7 +2359,8 @@ def h2_rank(rank, world, port, cfg_path, out_dir):
 
     sift.detect_sift_batch = counted_detect
     BundleAdjustmentPipeline.save_corrected_cameras = counted_save
-    counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz]
+    counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz, sift.blur,
+                sift.upsample2]
     for k in counters:
         k.launches = 0
     torch.cuda.synchronize()
@@ -2427,6 +2523,7 @@ def main():
     from sat_bundleadjust_tpu_torch.ops import _build
     from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
+    from sat_bundleadjust_tpu_torch.ops import sift
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2457,6 +2554,11 @@ def main():
     for P in (3, 8, 11):
         for kernel in ("schur_points", "schur_cameras"):
             assert "{}<{}>".format(kernel, P) in ptxas, "no ptxas report of {}<{}>".format(kernel, P)
+    # the SIFT kernels at the radii the main path runs: 5 (the first blur), 13
+    ptxas.update((k, v) for k, v in ptxas_summary(build_logs.get("sift_blur", "")).items()
+                 if "<" not in k or k.endswith(("<5>", "<13>")))
+    for kernel in ("sift_blur_kernel<5>", "sift_blur_kernel<13>", "sift_upsample2_kernel"):
+        assert kernel in ptxas, "no ptxas report of " + kernel
     for name, line in ptxas.items():
         log("ptxas {}: {}".format(name, line))
 
@@ -2466,20 +2568,20 @@ def main():
     rec["slice_a"] = slice_a(dev, kernels)
     rec["slice_b"] = slice_b(dev, kernels)
     rec["small_reference"] = small_reference(dev)
-    c = slice_c(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz])
+    counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz, sift.blur,
+                sift.upsample2]
+    c = slice_c(dev, counters)
     rec["schur_wz"] = {"A": kernels["A"], "B": kernels["B"], "C": c["schur_wz"]}
     images, ft = c.pop("images"), c.pop("ft")
     rec["nn2"] = check_nn2(ft, images, dev)
     rec["detection_profile"] = profile_detection(images, dev)
     rec["slice_c"] = c
     rec["sift_device_check"] = sift_device_check(dev, images, ft, c)
-    rec["slice_i"] = slice_i(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single,
-                                   smv.schur_wz], images, ft)
+    rec["sift_blur"] = check_sift_blur(dev)
+    rec["slice_i"] = slice_i(dev, counters, images, ft)
     del ft
-    rec["slice_d"] = slice_d(dev, [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz],
-                             images)
+    rec["slice_d"] = slice_d(dev, counters, images)
     del images
-    counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz]
     with tempfile.TemporaryDirectory(prefix="slice_e_") as root:
         img_dir = os.path.join(root, "images")
         os.makedirs(img_dir)
@@ -2558,6 +2660,27 @@ def main():
             "bound_by": k["bound_by"], "library_ms": None,
             "at": "slice C's largest staged chunk, B={B} n1={n1} n2={n2}; launches by slices C, "
                   "I, D, E, F CLI, G, H2 reference, H2, J tracks".format(**k["shape"]),
+        })
+    sift_launches = {name: (c["launches"][name] + rec["slice_i"]["launches"][name]
+                            + rec["slice_d"]["launches"][name]
+                            + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
+                            + rec["slice_f"]["cli"]["launches"][name]
+                            + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])
+                            + rec["slice_h"]["H2"]["reference"]["launches"][name]
+                            + rec["slice_h"]["H2"]["launches"][name]
+                            + rec["slice_j"]["tracks"]["launches"][name])
+                     for name in ("blur", "upsample2")}
+    for name, r in ((n, rec["sift_blur"][n]) for n in ("blur", "upsample2")):
+        entries.append({
+            "name": "sift_" + name, "route": "cuda",
+            "source": "sat_bundleadjust_tpu_torch/csrc/sift_blur.cu", "replaces": None,
+            "launches": sift_launches[name],
+            "max_abs_err": 0.0 if rec["sift_blur"]["bit_identical"][name] else None,
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "at": "rpc_date10.cli's batch, {B} x {h}x{w} (blur: the first octave, r = {radius}); "
+                  "launches by slices C, I, D, E, F CLI, G, H2 reference, H2, J "
+                  "tracks".format(**rec["sift_blur"]["shape"]),
         })
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

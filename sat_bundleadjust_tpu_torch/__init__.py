@@ -8,8 +8,10 @@ sat_bundleadjust_tpu_torch.cli config.json`) runs a scene config end to end
 package's outputs: rpcs_adj/*.rpc_adj, pts3d_adj.ply, cam_params/. It covers
 * the tracks front end: SIFT detection (`ops.sift`), pair selection, the
   epipolar F init, 2-NN matching, RANSAC and the union-find tracks
-  (`tracks.pipeline.FeatureTracksPipeline`); the 2-NN matchers are
-  hand-written CUDA kernels (`ops.nn2_match`, source `csrc/nn2_match.cu`);
+  (`tracks.pipeline.FeatureTracksPipeline`); the 2-NN matchers and SIFT's
+  scale-space blur and upsample are hand-written CUDA kernels
+  (`ops.nn2_match`, `ops.sift`; sources `csrc/nn2_match.cu`,
+  `csrc/sift_blur.cu`);
 * the bundle-adjustment stage: the problem parameterization (`ba.params`),
   the Levenberg-Marquardt solve with the matrix-free CG Schur solver
   (`ops.lm`, `ba.solver`), outlier rejection with re-triangulation

@@ -13,7 +13,11 @@ elementary functions of the orientation and descriptor stages:
 * the bilinear 2x upsampling is written out (weights 1, 0.75/0.25, 1 at the
   borders, as `jax.image.resize` normalizes them), not `F.interpolate`;
 * blurs are separable slice-and-accumulate sums with edge padding, in tap
-  order, not a convolution;
+  order, not a convolution; on the card the blur of a level and the
+  upsample are one launch each of a hand-written kernel
+  (csrc/sift_blur.cu, `blur`, `upsample2`) that computes the plain
+  version's bits, and each level is written into its slot of the octave's
+  (B, S, H, W) scale space;
 * the 3x3x3 extremum test is one max pool with -inf padding;
 * `lax.top_k` becomes a stable descending sort of the candidates (ties go
   to the lowest index, as `lax.top_k` breaks them).
@@ -30,11 +34,14 @@ Output layout: (N, 132) float rows (col, row, scale, orientation, 128-dim
 descriptor) in the input image's pixel coordinates.
 """
 
+import ctypes
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sat_bundleadjust_tpu_torch import resolve_device
+from sat_bundleadjust_tpu_torch.ops import _build
 from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 # IPOL anatomy parameters
@@ -274,38 +281,27 @@ def _accumulate(taps, im_p, n, dim):
     return acc
 
 
-def _blur(im, sigma):
-    """Separable Gaussian blur with edge padding, host taps (jax _blur)."""
-    if sigma <= 0:
-        return im
-    k = _gaussian_kernel(sigma)
-    r = (len(k) - 1) // 2
+def _blur_plain(im, taps):
+    """Separable Gaussian blur of (B, H, W) with edge padding, along rows,
+    then along columns (jax _blur, _blur_dynamic): blur's plain version,
+    ~1 000 device operations a call."""
+    radius = (len(taps) - 1) // 2
     _, h, w = im.shape
-    taps = [float(v) for v in k]
-    im = _accumulate(taps, _pad_edge(im, r, 1), h, 1)
-    return _accumulate(taps, _pad_edge(im, r, 2), w, 2)
+    im = _accumulate(taps, _pad_edge(im, radius, 1), h, 1)
+    return _accumulate(taps, _pad_edge(im, radius, 2), w, 2)
 
 
 def _dynamic_taps(sigma, radius):
     """Gaussian taps of the fixed-radius blur for a float32 tensor sigma,
     computed as jax _blur_dynamic computes them: XLA's float32 exp, a sum
-    in index order, one division. Returns a list of 0-d tensors."""
+    in index order, one division. Returns a (2 radius + 1,) tensor on
+    sigma's device."""
     x = torch.arange(-radius, radius + 1, dtype=_F32, device=sigma.device)
     k = _exp_f32(-(x * x) / (2.0 * (sigma * sigma)))
     total = k[0]
     for t in range(1, 2 * radius + 1):
         total = total + k[t]
-    k = k / total
-    return [k[t] for t in range(2 * radius + 1)]
-
-
-def _blur_dynamic(im, taps):
-    """Separable Gaussian blur with the fixed-radius taps of _dynamic_taps
-    (jax _blur_dynamic)."""
-    radius = (len(taps) - 1) // 2
-    _, h, w = im.shape
-    im = _accumulate(taps, _pad_edge(im, radius, 1), h, 1)
-    return _accumulate(taps, _pad_edge(im, radius, 2), w, 2)
+    return k / total
 
 
 def _upsample_axis(im, dim):
@@ -328,10 +324,126 @@ def _upsample_axis(im, dim):
     return out.reshape(shape)
 
 
-def _upsample2(im):
-    """Bilinear 2x upsampling of (B, H, W) to delta_min = 0.5 (columns,
-    then rows, the order in which jax.image.resize's contractions run)."""
+def _upsample_plain(im):
+    """upsample2's plain version: columns, then rows, the order in which
+    jax.image.resize's contractions run."""
     return _upsample_axis(_upsample_axis(im, 2), 1)
+
+
+# csrc/sift_blur.cu: the largest radius it is built for (kMaxRadius)
+BLUR_MAX_RADIUS = 16
+
+_SIGNATURES = {
+    "sift_blur": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                 ctypes.c_longlong, ctypes.c_void_p] + [ctypes.c_int] * 4
+                  + [ctypes.c_void_p]),
+    "sift_upsample2": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p]),
+}
+
+
+def _check_stack(name, arg, t, device):
+    """t is a (B, H, W) float32 stack on `device` whose images are each
+    contiguous (row-major, any distance between them)."""
+    if t.device != device:
+        raise ValueError("{}: {} is on {}, the images on {}".format(name, arg, t.device, device))
+    if t.dtype != _F32:
+        raise ValueError("{}: {} must be float32, got {}".format(name, arg, t.dtype))
+    if t.dim() != 3:
+        raise ValueError("{}: {} must be (B, H, W), got {}".format(name, arg, tuple(t.shape)))
+    _, h, w = t.shape
+    if (w > 1 and t.stride(2) != 1) or (h > 1 and t.stride(1) != w):
+        raise ValueError("{}: each image of {} must be contiguous".format(name, arg))
+
+
+def _shares_memory(a, b):
+    """Whether an image of the stack a and one of the same-shape stack b
+    share memory (their images sorted by address: an overlap shows between
+    neighbours, all images being of one size)."""
+    n = 4 * a.shape[1] * a.shape[2]
+    starts = sorted((t.data_ptr() + 4 * i * t.stride(0), k)
+                    for k, t in enumerate((a, b)) for i in range(t.shape[0]))
+    return any(k0 != k1 and s1 < s0 + n for (s0, k0), (s1, k1) in zip(starts, starts[1:]))
+
+
+def _launch(fn, dev, *args):
+    """Call the C entry point `fn` with `args` and dev's current stream;
+    raise on the CUDA error it returns."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = getattr(_build.load("sift_blur", _SIGNATURES), fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError("{} kernel launch failed: CUDA error {}".format(fn, err))
+
+
+def blur(im, taps, out=None):
+    """Separable Gaussian blur of a (B, H, W) float32 stack with edge
+    padding: along rows, then along columns, each pass a chain of fused
+    multiply-adds in tap order (jax _blur, _blur_dynamic).
+
+    taps: (2 r + 1,) float32 on im's device, r <= BLUR_MAX_RADIUS. out: the
+    (B, H, W) float32 stack to write (a slot of a scale space: each image
+    contiguous), which may not overlap im; by default a new one. CPU
+    tensors take the plain version (_blur_plain); CUDA tensors launch
+    csrc/sift_blur.cu once or raise, and each launch adds one to
+    blur.launches. Returns out."""
+    dev = im.device
+    _check_stack("blur", "im", im, dev)
+    if out is None:
+        out = torch.empty_like(im, memory_format=torch.contiguous_format)
+    _check_stack("blur", "out", out, dev)
+    if out.shape != im.shape:
+        raise ValueError("blur: out has shape {}, im {}".format(tuple(out.shape),
+                                                                tuple(im.shape)))
+    if taps.device != dev or taps.dtype != _F32 or taps.dim() != 1 or not taps.is_contiguous():
+        raise ValueError("blur: taps must be a contiguous 1-D float32 tensor on {}".format(dev))
+    radius = (taps.shape[0] - 1) // 2
+    if taps.shape[0] % 2 == 0 or not 1 <= radius <= BLUR_MAX_RADIUS:
+        raise ValueError("blur: {} taps; the kernel takes 2 r + 1 for r in 1..{}".format(
+            taps.shape[0], BLUR_MAX_RADIUS))
+    if im.numel() and _shares_memory(im, out):
+        raise ValueError("blur: out overlaps im")
+    if dev.type == "cpu":
+        return out.copy_(_blur_plain(im, taps))
+    if dev.type != "cuda":
+        raise ValueError("blur: unsupported device {}".format(dev))
+    B, H, W = im.shape
+    if im.numel():
+        _launch("sift_blur", dev, im.data_ptr(), im.stride(0), out.data_ptr(), out.stride(0),
+                taps.data_ptr(), radius, B, H, W)
+        blur.launches += 1
+    return out
+
+
+def upsample2(im):
+    """Bilinear 2x upsampling of a contiguous (B, H, W) float32 stack to
+    (B, 2H, 2W), delta_min = 0.5: jax.image.resize's weights, columns, then
+    rows. CPU tensors take the plain version (_upsample_plain); CUDA
+    tensors launch csrc/sift_blur.cu once or raise, and each launch adds
+    one to upsample2.launches."""
+    dev = im.device
+    _check_stack("upsample2", "im", im, dev)
+    if not im.is_contiguous():
+        raise ValueError("upsample2: im must be contiguous")
+    if dev.type == "cpu":
+        return _upsample_plain(im)
+    if dev.type != "cuda":
+        raise ValueError("upsample2: unsupported device {}".format(dev))
+    B, H, W = im.shape
+    out = torch.empty((B, 2 * H, 2 * W), dtype=_F32, device=dev)
+    if im.numel():
+        _launch("sift_upsample2", dev, im.data_ptr(), out.data_ptr(), B, H, W)
+        upsample2.launches += 1
+    return out
+
+
+blur.launches = 0
+upsample2.launches = 0
+
+
+def _blur(im, sigma, out=None):
+    """blur with the host taps of _gaussian_kernel(sigma) (jax _blur),
+    uploaded once a call."""
+    return blur(im, torch.as_tensor(_gaussian_kernel(sigma), device=im.device), out)
 
 
 def _inv3x3(V):
@@ -606,24 +718,27 @@ def _pyramid_extrema(im, thresh_dog, n_octaves, n_scales, max_kp_per_octave):
     sigma_extra = float(np.sqrt(max(SIGMA_MIN ** 2 - SIGMA_IN ** 2, 0.0)) / DELTA_MIN)
     sig_inc = torch.as_tensor(_sig_inc(n_scales), device=im.device)
     taps = [_dynamic_taps(sig_inc[s], _MAX_BLUR_RADIUS) for s in range(n_scales + 2)]
-    current = _blur(_upsample2(im), sigma_extra)
+    up = upsample2(im)
+    B, S = up.shape[0], n_scales + 3
+    ss = up.new_empty((B, S, *up.shape[1:]))  # the octave's scale space, level by level
+    _blur(up, sigma_extra, out=ss[:, 0])
+    del up
     octs, counts = [], []
     for _o in range(n_octaves):
-        _, H, W = current.shape
+        H, W = ss.shape[2:]
         if H < 12 or W < 12:
             break
         slots = int(min(max_kp_per_octave, max(192, (H * W) // 128)))
-        ss_list = [current]
         for s in range(n_scales + 2):
-            ss_list.append(_blur_dynamic(ss_list[-1], taps[s]))
-        ss = torch.stack(ss_list, dim=1)  # (B, S, H, W)
-        del ss_list
+            blur(ss[:, s], taps[s], out=ss[:, s + 1])
         dog = ss[:, 1:] - ss[:, :-1]
-        kps = [_extrema_and_refine(dog[b], thresh_dog, slots) for b in range(ss.shape[0])]
+        kps = [_extrema_and_refine(dog[b], thresh_dog, slots) for b in range(B)]
         del dog
         octs.append((ss, kps))
         counts.append(torch.stack([kp["valid"].sum() for kp in kps]))
-        current = ss[:, n_scales, ::2, ::2]
+        first = ss[:, n_scales, ::2, ::2]
+        ss = first.new_empty((B, S, *first.shape[1:]))
+        ss[:, 0] = first
     return octs, torch.stack(counts, dim=1)
 
 
@@ -756,10 +871,13 @@ def _detect_batch(images, thresh_dog, n_octaves, n_scales, max_kp, max_kp_per_oc
         im = _normalized_stack(images, dev)
 
     with torch.no_grad():
-        with span("sift.pyramid"):
+        # blur_launches: the scale space's kernel launches (blurs and upsample)
+        with span("sift.pyramid") as pyramid:
+            launched = blur.launches + upsample2.launches
             thresh = torch.tensor(thresh_dog, dtype=_F32, device=dev)
             octs, counts = _pyramid_extrema(im, thresh, n_octaves, n_scales, max_kp_per_octave)
             counts = counts.max(dim=0).values.cpu().numpy()  # the one host sync between phases
+            pyramid.attrs["blur_launches"] = blur.launches + upsample2.launches - launched
         h0, w0 = int(im.shape[1]), int(im.shape[2])
         slots = _octave_slots(h0, w0, n_octaves, max_kp_per_octave)
         buckets = tuple(_next_bucket(int(c), s) for c, s in zip(counts, slots))

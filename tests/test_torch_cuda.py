@@ -638,6 +638,107 @@ def test_sift_on_the_card_gives_the_cpu_arrays(cuda):
     assert f_card.shape == f_cpu.shape and np.array_equal(f_card, f_cpu)
 
 
+def _blur_input(B, H, W, seed):
+    """Seeded float32 (B, H, W) with zeros, negatives, subnormals (~1e-39)
+    and large values (~1e30, far from overflow)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, H, W)).astype(np.float32)
+    u = rng.random((B, H, W))
+    x[u < 0.05] = 0.0
+    x[(u >= 0.05) & (u < 0.1)] *= np.float32(1e-39)
+    x[(u >= 0.1) & (u < 0.13)] *= np.float32(1e30)
+    return torch.as_tensor(x)
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", ["host r=5", "device r=13"])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H,W", [(1, 1), (5, 7), (16, 16), (64, 32), (67, 45), (130, 97),
+                                 (200, 33)])
+def test_sift_blur_kernel_gives_the_plain_bits(cuda, taps, B, H, W):
+    """csrc/sift_blur.cu's blur against the plain version on the CPU, bit
+    for bit: both kinds of taps (the host constants of the first blur, the
+    device-computed taps of the fixed-radius blur), shapes smaller than the
+    radius and not multiples of the 64 x 32 tile; one launch a call."""
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    x = _blur_input(B, H, W, seed=H * 1000 + W + B)
+    if taps == "host r=5":
+        k_cpu = torch.as_tensor(sift._gaussian_kernel(1.249))
+        k_card = k_cpu.to(cuda)
+    else:
+        k_cpu = sift._dynamic_taps(torch.as_tensor(sift._sig_inc(3))[1], 13)
+        k_card = sift._dynamic_taps(torch.as_tensor(sift._sig_inc(3), device=cuda)[1], 13)
+        assert _same_bits(k_card, k_cpu)
+    want = sift._blur_plain(x, k_cpu)
+    before = sift.blur.launches
+    got = sift.blur(x.to(cuda), k_card)
+    torch.cuda.synchronize()
+    assert sift.blur.launches == before + 1
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 2), (2, 1), (2, 2), (5, 7), (33, 17), (64, 96)])
+def test_sift_upsample_kernel_gives_the_plain_bits(cuda, B, H, W):
+    """csrc/sift_blur.cu's 2x upsample against the plain version on the CPU,
+    bit for bit: n = 1 (duplicated), n = 2, odd and even n."""
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    x = _blur_input(B, H, W, seed=7 * H + W + B)
+    before = sift.upsample2.launches
+    got = sift.upsample2(x.to(cuda))
+    torch.cuda.synchronize()
+    assert sift.upsample2.launches == before + 1
+    assert _same_bits(got, sift._upsample_plain(x))
+
+
+@pytest.mark.cuda
+def test_sift_blur_kernel_writes_a_scale_space_slot(cuda):
+    """Level s + 1 of a (B, S, H, W) scale space blurred from level s in
+    place, as the pyramid writes it: the slot's bits, the other slots
+    untouched."""
+    from sat_bundleadjust_tpu_torch.ops import sift
+
+    B, S, H, W = 3, 4, 37, 71
+    ss = _blur_input(B, S, H * W, seed=3).reshape(B, S, H, W)
+    k_cpu = sift._dynamic_taps(torch.as_tensor(sift._sig_inc(3))[2], 13)
+    card = ss.to(cuda)
+    sift.blur(card[:, 1], k_cpu.to(cuda), out=card[:, 2])
+    torch.cuda.synchronize()
+    want = ss.clone()
+    want[:, 2] = sift._blur_plain(ss[:, 1], k_cpu)
+    assert _same_bits(card, want)
+
+
+@pytest.mark.cuda
+def test_sift_pyramid_on_the_card_runs_the_kernels(cuda):
+    """A detection on the card blurs through csrc/sift_blur.cu: the upsample
+    and the first blur, then 5 blurs an octave, one launch each, as the
+    `sift.pyramid` span's blur_launches counts them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.utils import profiling
+
+    ims, _ = demo.render_synthetic_images(n_cam=2, h=128, w=160, seed=0, alt=0.0, device=cuda)
+    profiling.reset()
+    blurs, ups = sift.blur.launches, sift.upsample2.launches
+    with profile(activities=[ProfilerActivity.CPU]):
+        sift.detect_sift_batch(ims, device=cuda)
+    octaves = len(sift._octave_slots(128, 160, 8, sift.MAX_KP_PER_OCTAVE))
+    assert sift.upsample2.launches - ups == 1
+    assert sift.blur.launches - blurs == 1 + 5 * octaves
+    pyramid = [s for s in profiling.spans() if s[2] == "sift.pyramid"]
+    assert [s[5] for s in pyramid] == [{"blur_launches": 2 + 5 * octaves}]
+    profiling.reset()
+
+
 @pytest.mark.cuda
 def test_detect_tpu_on_the_card_is_the_batched_detection(cuda):
     """detect_tpu of one frame with a mask over its central half, on the

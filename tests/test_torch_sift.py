@@ -90,18 +90,58 @@ def test_scale_space_matches_jax():
     one ulp, each on JAX's own input."""
     x = np.random.RandomState(0).rand(50, 60).astype(np.float32)
     up_j = np.asarray(jsift._upsample2(jnp.asarray(x)))
-    up_t = tsift._upsample2(torch.as_tensor(x)[None])[0].numpy()
+    up_t = tsift.upsample2(torch.as_tensor(x)[None])[0].numpy()
     np.testing.assert_array_equal(up_t, up_j)
     bj = np.asarray(jax.jit(lambda a: jsift._blur(a, 1.249))(jnp.asarray(up_j)))
     bt = tsift._blur(torch.tensor(up_j)[None], 1.249)[0].numpy()
     sig = tsift._sig_inc(3)[1]
     dj = np.asarray(jax.jit(lambda a, s: jsift._blur_dynamic(a, s, 13))(
         jnp.asarray(bj), jnp.float32(sig)))
-    dt = tsift._blur_dynamic(torch.tensor(bj)[None],
-                             tsift._dynamic_taps(torch.tensor(sig), 13))[0].numpy()
+    dt = tsift.blur(torch.tensor(bj)[None], tsift._dynamic_taps(torch.tensor(sig), 13))[0].numpy()
     for got, want in ((bt, bj), (dt, dj)):
         assert (got == want).mean() >= 0.995, (got == want).mean()
         assert _ulps(got, want).max() <= 1.0
+
+
+def test_scale_space_wrappers_take_the_plain_path_on_the_cpu():
+    """On CPU tensors `blur` and `upsample2` are their plain versions (the
+    same bits), `blur` writes into a slot of a (B, S, H, W) scale space and
+    nothing else, and neither launches: ops/launches lists both wrappers,
+    and their counters stay where they were."""
+    from sat_bundleadjust_tpu_torch.ops import launches
+
+    assert tsift.blur in launches.WRAPPERS and tsift.upsample2 in launches.WRAPPERS
+    before = launches.snapshot()
+    x = torch.as_tensor(np.random.RandomState(1).randn(2, 9, 14).astype(np.float32))
+    taps = tsift._dynamic_taps(torch.tensor(tsift._sig_inc(3)[2]), 13)
+    ss = torch.zeros((2, 3, 9, 14))
+    assert tsift.blur(x, taps, out=ss[:, 1]).data_ptr() == ss[:, 1].data_ptr()
+    assert torch.equal(ss[:, 1], tsift._blur_plain(x, taps))
+    assert not ss[:, 0].any() and not ss[:, 2].any()
+    assert torch.equal(tsift.upsample2(x), tsift._upsample_plain(x))
+    assert launches.snapshot() == before
+    assert tsift.blur.launches == 0 and tsift.upsample2.launches == 0
+
+
+@pytest.mark.parametrize("case", ["float64", "2-D", "strided rows", "even taps", "radius 17",
+                                  "taps not 1-D", "out overlaps", "out shape"])
+def test_blur_refuses_what_the_kernel_does_not_take(case):
+    """`blur` checks its arguments on every device, before any launch."""
+    x = torch.zeros((2, 8, 6))
+    taps = torch.as_tensor(tsift._gaussian_kernel(1.249))
+    ss = torch.zeros((2, 3, 8, 6))
+    args = {
+        "float64": (x.double(), taps, None),
+        "2-D": (x[0], taps, None),
+        "strided rows": (torch.zeros((2, 8, 12))[:, :, ::2], taps, None),
+        "even taps": (x, taps[1:], None),
+        "radius 17": (x, torch.ones(35), None),
+        "taps not 1-D": (x, taps[None], None),
+        "out overlaps": (ss[:, 1], taps, ss.view(2, 3 * 8, 6)[:, 4:12]),
+        "out shape": (x, taps, torch.zeros((2, 8, 5))),
+    }[case]
+    with pytest.raises(ValueError):
+        tsift.blur(*args)
 
 
 def make_texture(h=240, w=320, seed=0, octaves=3):

@@ -175,6 +175,8 @@ def test_the_front_end_and_refit_spans_carry_their_counts(recorder):
     assert len(batch) == 1 and batch[0][5] == {"frames": 2}
     children = {s[2] for s in spans if s[1] == batch[0][0]}
     assert {"sift.upload", "sift.pyramid", "sift.describe", "sift.to_host"} <= children
+    # the CPU takes the plain blurs: no kernel launch in the pyramid
+    assert [s[5] for s in spans if s[2] == "sift.pyramid"] == [{"blur_launches": 0}]
     tri = [s for s in spans if s[2] == "triangulate.rpc"]
     assert tri and all(s[5]["host_reads"] >= 1 for s in tri)
     loop = [s for s in spans if s[2] == "triangulate.loop"][0]
