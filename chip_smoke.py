@@ -578,7 +578,10 @@ def slice_a(dev, kernels):
     p2 = outliers.rm_outliers(e_soft, p, device=dev)
     torch.cuda.synchronize()
     rm_s = time.time() - t0
-    _, _, n_flagged = outliers.compute_obs_to_remove(e_soft, p)  # the count, outside the timing
+    # the count, outside the timing
+    cam_ind = torch.as_tensor(p.cam_ind).long()
+    thr = outliers.camera_thresholds(torch.as_tensor(e_soft), cam_ind, p.n_cam)
+    n_flagged = int((torch.as_tensor(e_soft).double() > thr[cam_ind]).sum())
     seeded_pairs = set(zip(scene["cam_ind"][seeded].tolist(), scene["pts_ind"][seeded].tolist()))
     kept = set(zip(p2.cam_ind.tolist(), p2.pts_prev_indices[p2.pts_ind].tolist()))
     recall = 1.0 - len(seeded_pairs & kept) / len(seeded_pairs)

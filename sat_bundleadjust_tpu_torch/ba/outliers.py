@@ -7,10 +7,9 @@ re-triangulation and parameter rebuild. `rm_outliers` does all of it on
 the observation table, on `device`, with no array of cameras x tracks: the
 thresholds of every camera at once (`camera_thresholds`), the pair test and
 the re-triangulation's duos by a key lookup of each track's camera pairs
-(`ops/triangulate.py`), the rebuild through `BAParams.from_obs_table`. The
-numpy functions of the dense C path (`get_elbow_value`,
-`compute_obs_to_remove`, `filter_C_using_pairs_to_triangulate`) stay as the
-tests' reference.
+(`ops/triangulate.py`), the rebuild through `BAParams.from_obs_table`.
+`get_elbow_value` is the rule for one curve (the tracks layer's matching
+takes it too).
 """
 
 import numpy as np
@@ -42,56 +41,14 @@ def get_elbow_value(err, max_outliers_percent=20, verbose=False):
     return elbow_value, bool(success)
 
 
-def filter_C_using_pairs_to_triangulate(C, pairs_to_triangulate):
-    """Indices of tracks with at least one triangulation pair."""
-    n_cam = C.shape[0] // 2
-    mask = (~np.isnan(C[::2])).astype(np.float64)  # (M, N)
-    P = np.zeros((n_cam, n_cam))
-    for (i, j) in pairs_to_triangulate:
-        if i < n_cam and j < n_cam:
-            P[i, j] = P[j, i] = 1.0
-    hits = np.einsum("mn,mk,kn->n", mask, P, mask)
-    return np.where(hits > 0)[0]
-
-
-def compute_obs_to_remove(err, p: BAParams, predef_thr=None, min_thr=1.0,
-                          reference_rounding=False):
-    """Per-camera thresholds and the C matrix without the flagged
-    observations: (C_new, cam_thr, n_detected). reference_rounding compares
-    against np.round(thr, 2), as the reference does."""
-    err = np.asarray(err)
-    cam_thr = []
-    for cam_idx in range(p.n_cam):
-        sel = p.cam_ind == cam_idx
-        if predef_thr is None:
-            if np.sum(sel) == 0:
-                cam_thr.append(np.inf)
-                continue
-            elbow_value, success = get_elbow_value(err[sel])
-            thr = max(elbow_value, min_thr) if success else float(np.max(err[sel]))
-            cam_thr.append(thr)
-        else:
-            cam_thr.append(float(predef_thr))
-
-    thr_arr = np.array(cam_thr)
-    if reference_rounding:
-        thr_arr = np.round(thr_arr, 2)
-    to_rm = err > thr_arr[p.cam_ind]
-    C_new = p.C.copy()
-    rm_cam = p.cam_ind[to_rm]
-    rm_pts = p.pts_ind[to_rm]
-    C_new[rm_cam * 2, rm_pts] = np.nan
-    C_new[rm_cam * 2 + 1, rm_pts] = np.nan
-    return C_new, cam_thr, int(np.sum(to_rm))
-
-
 def camera_thresholds(err, cam_ind, n_cam, min_thr=1.0, max_outliers_percent=20):
-    """Each camera's threshold as compute_obs_to_remove sets it (elbow,
-    success, min_thr), for all cameras at once on err's device: (n_cam,)
-    float64, inf for a camera without observations. err (K,) float32 or
-    float64, cam_ind (K,) int64. The elbow is get_elbow_value's point
-    furthest from the chord (the first of equals), the percentile numpy's
-    linear one, in err's dtype as numpy computes it."""
+    """Each camera's threshold (get_elbow_value's elbow where it succeeds,
+    at least min_thr, else the camera's largest error), for all cameras at
+    once on err's device: (n_cam,) float64, inf for a camera without
+    observations. err (K,) float32 or float64, cam_ind (K,) int64. The
+    elbow is get_elbow_value's point furthest from the chord (the first of
+    equals), the percentile numpy's linear one, in err's dtype as numpy
+    computes it."""
     dev, dt, f64 = err.device, err.dtype, torch.float64
     K = err.numel()
     if K == 0:
@@ -140,16 +97,15 @@ def rm_outliers(err, p: BAParams, predef_thr=None, min_thr=1.0, verbose=False,
     """Remove outlier observations of p given per-observation errors err;
     returns the new BAParams (p itself when nothing is removed).
 
-    On the observation table, for p built from C or from a table: the
-    per-camera thresholds (camera_thresholds, or predef_thr; with
-    reference_rounding compared as np.round(thr, 2)); the observations
-    above them removed; the tracks kept that have >= 2 observations left
-    and a listed pair of their cameras; those re-triangulated
-    (ops/triangulate.triangulate_table, on `device`; the first n_pts_fix
-    keep their points); the rebuild by BAParams.from_obs_table, with
-    n_pts_fix and pts_prev_indices carried as the C path carries them, and
-    the C of the kept table where p has a C. The `ba.outliers` span holds
-    the counts and the host's reads of the device (host_reads)."""
+    On the observation table: the per-camera thresholds
+    (camera_thresholds, or predef_thr; with reference_rounding compared as
+    np.round(thr, 2)); the observations above them removed; the tracks kept
+    that have >= 2 observations left and a listed pair of their cameras;
+    those re-triangulated (ops/triangulate.triangulate_table, on `device`;
+    the first n_pts_fix keep their points); the rebuild by
+    BAParams.from_obs_table, with n_pts_fix and pts_prev_indices carried
+    over. The `ba.outliers` span holds the counts and the host's reads of
+    the device (host_reads)."""
     from sat_bundleadjust_tpu_torch.ops.triangulate import (host_read, pair_lookup,
                                                             tracks_with_a_pair,
                                                             triangulate_table, true_rows)
@@ -205,8 +161,6 @@ def rm_outliers(err, p: BAParams, predef_thr=None, min_thr=1.0, verbose=False,
                     },
                 )
                 new_p.pts_prev_indices = p.pts_prev_indices[final_left]
-                if p.C is not None:
-                    new_p.C = new_p.dense_C()
         cam_thr = host_read(thr, reads).tolist() if verbose else None
         outer.attrs.update(removed=n_detected, tracks_out=new_p.n_pts)
     if verbose:

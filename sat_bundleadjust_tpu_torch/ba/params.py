@@ -83,10 +83,13 @@ def point_major_order(pts_ind, cam_ind):
 
 
 class BAParams:
-    """The bundle adjustment problem state.
+    """The bundle adjustment problem state: the observation table in
+    point-major (point, camera) order, the cameras' parameters and the
+    problem's layout.
 
     Args:
-      C: (2M, N) correspondence matrix (NaN where unobserved)
+      C: (2M, N) correspondence matrix (NaN where unobserved), the tracks
+         layer's format: read once into the table
       pts3d: (N, 3) initial ECEF tie points
       cameras: list of M RPCModel (numpy fields) or 3x4 matrices
       cam_model: "rpc" | "affine" | "perspective"
@@ -97,8 +100,40 @@ class BAParams:
     """
 
     def __init__(self, C, pts3d, cameras, cam_model, pairs_to_triangulate, camera_centers, d=None):
-        d = d or {}
-        self.C = np.array(C, dtype=np.float64)
+        d = {"verbose": True, "reduce": True, **(d or {})}
+        C = np.asarray(C, dtype=np.float64)
+        # C's observations, point by point and camera by camera within a point
+        pts_ind, cam_ind = np.nonzero(~np.isnan(C[::2]).T)
+        pts2d = np.stack([C[2 * cam_ind, pts_ind], C[2 * cam_ind + 1, pts_ind]], axis=1)
+        self._define(pts_ind, cam_ind, pts2d, pts3d, cameras, cam_model, camera_centers,
+                     pairs_to_triangulate, d)
+        if self.verbose:
+            self.print_definition()
+
+    @classmethod
+    def from_obs_table(cls, pts_ind, cam_ind, pts2d, pts3d, cameras, cam_model,
+                       camera_centers, pairs_to_triangulate=None, d=None):
+        """Construction from a flat observation table in any order. The
+        table is sorted to point-major order, so that it gives the problem
+        of the C matrix with the same observations. No reduce pass: callers
+        pass tables in which every track is observed by an optimizable
+        camera."""
+        with span("ba.params", observations=len(pts_ind)):
+            self = cls.__new__(cls)
+            with span("ba.params.sort"):
+                order = torch.from_numpy(point_major_order(pts_ind, cam_ind))
+                pts_ind, cam_ind, pts2d = (
+                    torch.from_numpy(np.ascontiguousarray(a, dtype)).index_select(0, order).numpy()
+                    for a, dtype in ((pts_ind, np.int32), (cam_ind, np.int32),
+                                     (pts2d, np.float64)))
+            self._define(pts_ind, cam_ind, pts2d, pts3d, cameras, cam_model, camera_centers,
+                         pairs_to_triangulate or [],
+                         {"verbose": False, **(d or {}), "reduce": False})
+            return self
+
+    def _define(self, pts_ind, cam_ind, pts2d, pts3d, cameras, cam_model, camera_centers,
+                pairs_to_triangulate, d):
+        """Both constructors' set-up from a point-major table."""
         self.pts3d = np.array(pts3d, dtype=np.float64)
         self.cameras = list(cameras)
         self.cam_model = cam_model
@@ -109,32 +144,25 @@ class BAParams:
         self.ref_cam_weight = float(d.get("ref_cam_weight", 1.0))
         self.n_cam_fix = int(d.get("n_cam_fix", 0))
         self.n_pts_fix = int(d.get("n_pts_fix", 0))
-        self.verbose = bool(d.get("verbose", True))
-        reduce = bool(d.get("reduce", True))
+        self.verbose = bool(d["verbose"])
 
-        self.n_cam, self.n_pts = self.C.shape[0] // 2, self.C.shape[1]
-        self.n_cam_opt = self.n_cam - self.n_cam_fix
-        self.n_pts_opt = self.n_pts - self.n_pts_fix
+        self.pts_ind = np.asarray(pts_ind).astype(np.int32, copy=False)
+        self.cam_ind = np.asarray(cam_ind).astype(np.int32, copy=False)
+        self.pts2d = np.asarray(pts2d, dtype=np.float64)
+        self.n_cam, self.n_pts = len(self.cameras), int(self.pts3d.shape[0])
         self.cam_prev_indices = np.arange(self.n_cam)
         self.pts_prev_indices = np.arange(self.n_pts)
-        if reduce:
+        if d["reduce"]:
             self._reduce()
+        self.n_cam_opt = self.n_cam - self.n_cam_fix
+        self.n_pts_opt = self.n_pts - self.n_pts_fix
+        self.n_obs = self.pts2d.shape[0]
 
         with span("ba.params.cameras", cameras=len(self.cameras)):
             self.cam_params = np.array(
                 [load_cam_params_from_camera(c, oC, cam_model)
                  for c, oC in zip(self.cameras, self.camera_centers)]
             )
-
-        # flat observation table in point-major (point, camera) order
-        mask = ~np.isnan(self.C[::2, :])  # (M, N)
-        pt_idx, c_idx = np.nonzero(mask.T)
-        self.pts_ind = pt_idx.astype(np.int32)
-        self.cam_ind = c_idx.astype(np.int32)
-        cols = self.C[2 * self.cam_ind, self.pts_ind]
-        rows = self.C[2 * self.cam_ind + 1, self.pts_ind]
-        self.pts2d = np.stack([cols, rows], axis=1)
-        self.n_obs = self.pts2d.shape[0]
 
         # camera 0 may be a weighted reference camera
         self.pts2d_w = np.ones(self.n_obs)
@@ -143,8 +171,30 @@ class BAParams:
 
         self._set_param_layout()
 
-        if self.verbose:
-            self.print_definition()
+    def _reduce(self):
+        """Drop the tracks with no observation in the optimized cameras,
+        then the cameras left with no observation, from the table; what is
+        kept keeps its order (pts_prev_indices, cam_prev_indices)."""
+        tracks = np.bincount(self.pts_ind[self.cam_ind >= self.n_cam_fix],
+                             minlength=self.n_pts) > 0
+        self.pts_prev_indices = np.flatnonzero(tracks)
+        self.n_pts_fix -= int(np.sum(~tracks[: self.n_pts_fix]))
+        self.pts3d = self.pts3d[self.pts_prev_indices]
+        rows = tracks[self.pts_ind]
+        self.pts_ind = (np.cumsum(tracks) - 1)[self.pts_ind[rows]].astype(np.int32)
+        self.cam_ind, self.pts2d = self.cam_ind[rows], self.pts2d[rows]
+
+        cams = np.bincount(self.cam_ind, minlength=self.n_cam) > 0
+        new_idx = np.cumsum(cams) - 1
+        self.cam_prev_indices = np.flatnonzero(cams)
+        self.n_cam_fix -= int(np.sum(~cams[: self.n_cam_fix]))
+        self.cam_ind = new_idx[self.cam_ind].astype(np.int32)
+        self.cameras = [self.cameras[i] for i in self.cam_prev_indices]
+        self.camera_centers = [self.camera_centers[i] for i in self.cam_prev_indices]
+        self.pairs_to_triangulate = [
+            (int(new_idx[a]), int(new_idx[b])) for (a, b) in self.pairs_to_triangulate
+            if a < len(cams) and b < len(cams) and cams[a] and cams[b]]
+        self.n_cam, self.n_pts = len(self.cam_prev_indices), len(self.pts_prev_indices)
 
     def print_definition(self):
         """The problem's sizes, as the constructor prints them when verbose."""
@@ -154,17 +204,9 @@ class BAParams:
         print("{} cameras, {} fixed and {} to be optimized".format(self.n_cam, self.n_cam_fix, self.n_cam_opt))
         print("{} parameters to optimize per camera\n".format(self.n_params))
 
-    def dense_C(self):
-        """The (2M, N) correspondence matrix of the observation table (NaN
-        where unobserved)."""
-        C = np.full((2 * self.n_cam, self.n_pts), np.nan)
-        C[2 * self.cam_ind, self.pts_ind] = self.pts2d[:, 0]
-        C[2 * self.cam_ind + 1, self.pts_ind] = self.pts2d[:, 1]
-        return C
-
     def _set_param_layout(self):
         """Number of optimized parameters, COMMON_K's seeding, frozen-entity
-        masks and the stacked RPCs; shared by both constructors."""
+        masks and the stacked RPCs; after the table."""
         affine = self.cam_model == "affine"
         n_params = 0
         self.n_params_k = 0
@@ -197,92 +239,6 @@ class BAParams:
         self.pts3d_ba = None
         self.cameras_ba = None
         self.estimated_params = None
-
-    @classmethod
-    def from_obs_table(cls, pts_ind, cam_ind, pts2d, pts3d, cameras, cam_model,
-                       camera_centers, pairs_to_triangulate=None, d=None):
-        """Construction from a flat observation table, without a dense C
-        matrix. The table is sorted to the C path's (point, camera) order,
-        so both constructors give identical problems. No reduce pass:
-        callers pass tables in which every track is observed by an
-        optimizable camera."""
-        with span("ba.params", observations=len(pts_ind)):
-            self = cls.__new__(cls)
-            d = d or {}
-            self.C = None
-            self.pts3d = np.array(pts3d, dtype=np.float64)
-            self.cameras = list(cameras)
-            self.cam_model = cam_model
-            self.pairs_to_triangulate = list(pairs_to_triangulate or [])
-            self.camera_centers = [np.asarray(c) for c in camera_centers]
-
-            self.cam_params_to_optimize = d.get("correction_params", ["R"])
-            self.ref_cam_weight = float(d.get("ref_cam_weight", 1.0))
-            self.n_cam_fix = int(d.get("n_cam_fix", 0))
-            self.n_pts_fix = int(d.get("n_pts_fix", 0))
-            self.verbose = bool(d.get("verbose", False))
-
-            self.n_cam = len(self.cameras)
-            self.n_pts = int(self.pts3d.shape[0])
-            self.n_cam_opt = self.n_cam - self.n_cam_fix
-            self.n_pts_opt = self.n_pts - self.n_pts_fix
-            self.cam_prev_indices = np.arange(self.n_cam)
-            self.pts_prev_indices = np.arange(self.n_pts)
-
-            with span("ba.params.cameras", cameras=len(self.cameras)):
-                self.cam_params = np.array(
-                    [load_cam_params_from_camera(c, oC, cam_model)
-                     for c, oC in zip(self.cameras, self.camera_centers)]
-                )
-
-            with span("ba.params.sort"):
-                order = torch.from_numpy(point_major_order(pts_ind, cam_ind))
-                self.pts_ind, self.cam_ind, self.pts2d = (
-                    torch.from_numpy(np.ascontiguousarray(a, dtype)).index_select(0, order).numpy()
-                    for a, dtype in ((pts_ind, np.int32), (cam_ind, np.int32),
-                                     (pts2d, np.float64)))
-            self.n_obs = self.pts2d.shape[0]
-            self.pts2d_w = np.ones(self.n_obs)
-            if self.ref_cam_weight > 1.0:
-                self.pts2d_w[self.cam_ind == 0] = self.ref_cam_weight
-
-            self._set_param_layout()
-            return self
-
-    def _reduce(self):
-        """Drop tracks with no observation in the optimized cameras, then
-        cameras left with no observation."""
-        C = self.C
-        cols_where_obs = (
-            np.sum(~np.isnan(C[::2, :])[-self.n_cam_opt:], axis=0).astype(bool)
-            if self.n_cam_opt > 0
-            else np.zeros(C.shape[1], dtype=bool)
-        )
-        self.pts_prev_indices = np.arange(self.n_pts)[cols_where_obs]
-        self.n_pts_fix -= int(np.sum(~cols_where_obs[: self.n_pts_fix]))
-        self.C = C[:, cols_where_obs].copy()
-        self.pts3d = self.pts3d[self.pts_prev_indices, :].copy()
-
-        obs_per_cam = np.sum(~np.isnan(self.C[::2]), axis=1)
-        cams_to_keep = obs_per_cam > 0
-        self.cam_prev_indices = np.arange(self.n_cam)[cams_to_keep]
-        self.C = self.C[np.repeat(cams_to_keep, 2), :]
-        old_n_cam_fix = self.n_cam_fix
-        self.n_cam = int(self.C.shape[0] // 2)
-        self.n_pts = int(self.C.shape[1])
-        self.n_cam_fix -= int(np.sum(~cams_to_keep[:old_n_cam_fix]))
-        self.n_cam_opt = self.n_cam - self.n_cam_fix
-        self.n_pts_opt = self.n_pts - self.n_pts_fix
-        self.cameras = [self.cameras[i] for i in self.cam_prev_indices]
-        self.camera_centers = [self.camera_centers[i] for i in self.cam_prev_indices]
-
-        new_idx = np.full(len(cams_to_keep), -1)
-        new_idx[cams_to_keep] = np.arange(int(np.sum(cams_to_keep)))
-        pairs = []
-        for (a, b) in self.pairs_to_triangulate:
-            if a < len(cams_to_keep) and b < len(cams_to_keep) and cams_to_keep[a] and cams_to_keep[b]:
-                pairs.append((int(new_idx[a]), int(new_idx[b])))
-        self.pairs_to_triangulate = pairs
 
     def opt_block(self):
         """Initial optimized camera block (M, n_params)."""

@@ -121,20 +121,21 @@ def make_fns(p, device, jac_dtype=torch.float32, obs=None):
     return residual_fn, jac_fn
 
 
-def build_problem(p, device, schur_mode=None, obs=None):
-    """The LMProblem of a BAParams on device, and the Schur mode. Its index
-    tables are built there from the observation table (obs, else uploaded
-    here) by ops/lm.problem_tables.
+def tie_tail(p):
+    """The parameters COMMON_K ties across a BAParams' cameras (0: none)."""
+    return p.n_params_k if getattr(p, "common_k", False) else 0
 
-    Default mode: "cg" on CUDA (as on any accelerator); on the CPU "dense"
-    up to 192 cameras, else "cg"."""
+
+def build_problem(p, device, schur_mode=None, obs=None):
+    """The LMProblem of a BAParams on device, and its Schur mode, "dense" or
+    "cg": the solve ops/lm.schur_solve chooses for schur_mode (None: the
+    default) on that device, with p's cameras and COMMON_K. Its index
+    tables, those of that solve, are built there from the observation table
+    (obs, else uploaded here) by ops/lm.problem_tables."""
     dev = torch.device(device)
-    if schur_mode is None:
-        if dev.type != "cpu":
-            schur_mode = "cg"
-        else:
-            schur_mode = "dense" if p.n_cam <= 192 else "cg"
     obs = upload_observations(p, dev) if obs is None else obs
+    tables, solve = lm_ops.problem_tables(obs.pts_ind, obs.cam_ind, p.n_pts, p.n_cam,
+                                          schur_mode, tie_tail(p))
 
     def f64(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)
@@ -146,13 +147,9 @@ def build_problem(p, device, schur_mode=None, obs=None):
         weights=obs.weights,
         cam_opt_mask=f64(p.cam_opt_mask),
         pts_opt_mask=f64(p.pts_opt_mask),
-        **lm_ops.problem_tables(obs.pts_ind, obs.cam_ind, p.n_pts, p.n_cam),
+        **tables,
     )
-    if schur_mode == "dense" and prob.obs_at is None and dev.type != "cpu":
-        # the pair-based dense assembly scatters Q = sum(track length^2)
-        # blocks with atomics; on the card use CG instead
-        schur_mode = "cg"
-    return prob, schur_mode
+    return prob, "cg" if solve == lm_ops.CG else "dense"
 
 
 class BASolver:
@@ -187,19 +184,17 @@ class BASolver:
         return self._drivers[key]
 
     def config(self, ls_params=None):
-        """The LMConfig of a solve. COMMON_K ties the trailing n_params_k
-        parameters across the optimized cameras, which only the CG solve
-        does."""
+        """The LMConfig of a solve, in the solver's mode. COMMON_K ties the
+        trailing n_params_k parameters across the optimized cameras."""
         ls = init_optimization_config(ls_params)
-        common_k = getattr(self.p, "common_k", False)
         return lm_ops.LMConfig(
             loss=ls["loss"],
             f_scale=float(ls["f_scale"]),
             max_iter=int(ls["max_iter"]),
             ftol=float(ls["ftol"]),
             xtol=float(ls["xtol"]),
-            schur_mode="cg" if common_k else self.mode,
-            tie_tail=self.p.n_params_k if common_k else 0,
+            schur_mode=self.mode,
+            tie_tail=tie_tail(self.p),
             cg_coarse_k=lm_ops.default_coarse_k(self.p.n_cam),
         )
 

@@ -50,12 +50,10 @@ def baparams_from_arrays(state):
       cam_opt_mask (M,), pts_opt_mask (N,);
       pairs_to_triangulate: (Q, 2) camera pairs;
       correction_params: list such as ["R"] or ["R", "T", "K", "COMMON_K"];
-      optional: C (2M, N), pts_prev_indices, cam_prev_indices,
-      ref_cam_weight.
+      optional: pts_prev_indices, cam_prev_indices, ref_cam_weight.
     """
     p = BAParams.__new__(BAParams)
     p.cam_model = state.get("cam_model", "rpc")
-    p.C = None if state.get("C") is None else np.array(state["C"], np.float64)
     p.pts3d = np.array(state["pts3d"], np.float64)
     p.cam_params = np.array(state["cam_params"], np.float64)
     if p.cam_model == "rpc":

@@ -3,9 +3,12 @@
 Counterpart of `sat_bundleadjust_tpu/ops/lm.py`. One LM step builds the
 per-camera (U), per-point (V) and per-observation (W) normal-equation
 blocks, eliminates the 3x3 point blocks and solves the reduced camera
-system with one of two backends:
-  - "dense": assemble the (P*M, P*M) reduced camera matrix and factor it;
-  - "cg": matrix-free preconditioned CG on the Schur complement, whose
+system with the solve that schur_solve chooses for the problem (whose
+tables problem_tables builds):
+  - DENSE_OBS_AT, DENSE_PAIRS: assemble the (P*M, P*M) reduced camera
+    matrix, over the (track, camera) grid of obs_at or over the intra-track
+    observation pairs, and factor it;
+  - CG: matrix-free preconditioned CG on the Schur complement, whose
     operator is the schur_wz kernel (ops/schur_matvec.py), with a
     block-Jacobi preconditioner on the true Schur diagonal, an additive
     coarse level and a warm start from the previous step.
@@ -51,13 +54,14 @@ class LMProblem(NamedTuple):
     weights: torch.Tensor  # (K,) f64
     cam_opt_mask: torch.Tensor  # (M,) f64, 1 where the camera is optimized
     pts_opt_mask: torch.Tensor  # (N,) f64
-    pair_k1: torch.Tensor  # (Q,) intra-track observation pairs (dense path)
-    pair_k2: torch.Tensor  # (Q,)
     # padded (segment, slot) -> observation tables, sentinel K: segment sums
     # as gather + dense reduce (deterministic, no atomics); None -> index_add_
     pt_gather: torch.Tensor = None  # (N, Tp)
     cam_gather: torch.Tensor = None  # (M, Tc)
-    # (N, M) observation lookup (sentinel K) for the one-matmul dense path
+    # intra-track observation pairs (DENSE_PAIRS only)
+    pair_k1: torch.Tensor = None  # (Q,)
+    pair_k2: torch.Tensor = None  # (Q,)
+    # (N, M) observation lookup (sentinel K; DENSE_OBS_AT only)
     obs_at: torch.Tensor = None
     # dual layouts of the CG operator: camera of each track-major slot
     # (sentinel M) and track of each camera-major slot (sentinel N)
@@ -90,7 +94,7 @@ class LMConfig(NamedTuple):
     # value across the optimized cameras. The CG runs on P S P, P the
     # projector that averages that block over the optimized cameras (the
     # null-space method for the shared K); 0 = no tying. Only the CG solve
-    # ties, so the dense solve is not taken when it is set.
+    # ties (schur_solve).
     tie_tail: int = 0
 
 
@@ -186,6 +190,38 @@ def build_obs_at(pts_ind, cam_ind, n_pts, n_cam):
 # the dense path's (N, M, P, 3) transients
 OBS_AT_MAX = 30_000_000
 
+# the Schur solves (schur_solve)
+DENSE_OBS_AT, DENSE_PAIRS, CG = "dense_obs_at", "dense_pairs", "cg"
+
+
+def schur_solve(device, n_cam, schur_mode=None, tie_tail=0, distributed=False, obs_at=True):
+    """The Schur solve of a problem, chosen here and nowhere else:
+    DENSE_OBS_AT, DENSE_PAIRS or CG.
+
+    schur_mode: "dense" or "cg" where the caller asks for one; None is
+    "dense" on the CPU up to 192 cameras, else "cg" (on CUDA, as on any
+    accelerator). The CG is the only solve that ties a tail (tie_tail,
+    COMMON_K) or sums over the shards of a distributed solve. A dense solve
+    assembles over obs_at where that table can be built (obs_at: N M <=
+    OBS_AT_MAX and no (track, camera) pair repeats), else over the
+    intra-track pairs on the CPU; on the card, where that assembly scatters
+    Q = sum(track length^2) blocks with atomics, the CG runs instead."""
+    cpu = torch.device(device).type == "cpu"
+    if schur_mode is None:
+        schur_mode = "dense" if cpu and n_cam <= 192 else "cg"
+    if schur_mode != "dense" or tie_tail or distributed:
+        return CG
+    if obs_at:
+        return DENSE_OBS_AT
+    return DENSE_PAIRS if cpu else CG
+
+
+def _solve_of(prob, n_cam, cfg, reduce=None):
+    """schur_solve's choice for a problem that problem_tables built under
+    cfg's mode (obs_at is there exactly when its solve was chosen)."""
+    return schur_solve(prob.pts_ind.device, n_cam, cfg.schur_mode, cfg.tie_tail,
+                       reduce is not None, prob.obs_at is not None)
+
 
 def _segments(ind, n_segments):
     """The stable order of ind, ind in that order, and each segment's count
@@ -203,46 +239,50 @@ def _gather_table(order, ind_sorted, starts, n_segments, width):
     return table
 
 
-def problem_tables(pts_ind, cam_ind, n_pts, n_cam):
+def problem_tables(pts_ind, cam_ind, n_pts, n_cam, schur_mode=None, tie_tail=0):
     """The index tables of an LMProblem, built by torch operations on the
-    device of pts_ind and cam_ind (int64 (K,)): pair_k1, pair_k2, pt_gather,
+    device of pts_ind and cam_ind (int64 (K,)), and the Schur solve they
+    serve (schur_solve's, for schur_mode and tie_tail): pt_gather,
     cam_gather (int64); the dual layouts cam_ind_pt, pts_ind_cam (int32)
-    when both padded tables hold at most 4 K slots, else None; obs_at
-    (int64) up to OBS_AT_MAX entries and when no (track, camera) repeats,
-    else None. Each equals what the numpy builders above give on the same
-    input. The host reads four scalars, at once: the two widths, the pair
-    count Q and the repeats."""
+    when both padded tables hold at most 4 K slots; pair_k1, pair_k2 for
+    DENSE_PAIRS and obs_at for DENSE_OBS_AT (int64); each one absent
+    otherwise (the LMProblem's None). Each equals what the numpy functions
+    above give on the same input. The host reads the two widths and, for
+    DENSE_PAIRS, the pair count Q at once; where obs_at could serve, first
+    whether a (track, camera) pair repeats."""
     dev = pts_ind.device
     K = pts_ind.numel()
+    solve = schur_solve(dev, n_cam, schur_mode, tie_tail, obs_at=n_pts * n_cam <= OBS_AT_MAX)
+    if solve == DENSE_OBS_AT:
+        flat = torch.sort(pts_ind * n_cam + cam_ind).values
+        if bool((flat[1:] == flat[:-1]).any()):
+            solve = schur_solve(dev, n_cam, schur_mode, tie_tail, obs_at=False)
     order_p, sorted_p, count_p, start_p = _segments(pts_ind, n_pts)
     order_c, sorted_c, count_c, start_c = _segments(cam_ind, n_cam)
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    reads = [torch.cat([count_p, zero]).max(), torch.cat([count_c, zero]).max(),
-             (count_p * count_p).sum(), zero[0]]
-    with_obs_at = n_pts * n_cam <= OBS_AT_MAX
-    if with_obs_at:
-        flat = torch.sort(pts_ind * n_cam + cam_ind).values
-        reads[3] = (flat[1:] == flat[:-1]).sum()
-    Tp, Tc, Q, repeats = torch.stack(reads).tolist()
+    reads = [torch.cat([count_p, zero]).max(), torch.cat([count_c, zero]).max()]
+    if solve == DENSE_PAIRS:
+        reads.append((count_p * count_p).sum())
+    Tp, Tc, *Q = torch.stack(reads).tolist()
     Tp, Tc = max(Tp, 1), max(Tc, 1)
 
-    # each track-sorted observation pairs with its whole track, in order
-    reps = count_p[sorted_p]
-    r = torch.repeat_interleave(torch.arange(K, device=dev), reps, output_size=Q)
-    shift = start_p[sorted_p] - (torch.cumsum(reps, 0) - reps)
-    tables = {"pair_k1": order_p[r],
-              "pair_k2": order_p[torch.arange(Q, device=dev) + shift[r]],
-              "pt_gather": _gather_table(order_p, sorted_p, start_p, n_pts, Tp),
-              "cam_gather": _gather_table(order_c, sorted_c, start_c, n_cam, Tc),
-              "cam_ind_pt": None, "pts_ind_cam": None, "obs_at": None}
+    tables = {"pt_gather": _gather_table(order_p, sorted_p, start_p, n_pts, Tp),
+              "cam_gather": _gather_table(order_c, sorted_c, start_c, n_cam, Tc)}
     if K > 0 and n_pts * Tp <= 4 * K and n_cam * Tc <= 4 * K:
         tables["cam_ind_pt"] = torch.cat([cam_ind, zero + n_cam])[tables["pt_gather"]].int()
         tables["pts_ind_cam"] = torch.cat([pts_ind, zero + n_pts])[tables["cam_gather"]].int()
-    if with_obs_at and not repeats:
+    if solve == DENSE_PAIRS:
+        # each track-sorted observation pairs with its whole track, in order
+        reps = count_p[sorted_p]
+        r = torch.repeat_interleave(torch.arange(K, device=dev), reps, output_size=Q[0])
+        shift = start_p[sorted_p] - (torch.cumsum(reps, 0) - reps)
+        tables["pair_k1"] = order_p[r]
+        tables["pair_k2"] = order_p[torch.arange(Q[0], device=dev) + shift[r]]
+    if solve == DENSE_OBS_AT:
         obs_at = torch.full((n_pts, n_cam), K, dtype=torch.int64, device=dev)
         obs_at[pts_ind, cam_ind] = torch.arange(K, device=dev)
         tables["obs_at"] = obs_at
-    return tables
+    return tables, solve
 
 
 # ----------------------------------------------------------------------
@@ -707,10 +747,10 @@ def _schur_system(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_sca
     return U_d, W, Vinv, b, g_pt
 
 
-def _dense_solve(system, prob, n_cam):
+def _dense_solve(system, prob, n_cam, solve):
     U_d, W, Vinv, b, _ = system
-    solve = _dense_mxu_schur_solve if prob.obs_at is not None else _dense_schur_solve
-    return solve(U_d, W, Vinv, b, prob, n_cam, prob.cam_opt_mask.to(U_d.dtype))
+    assemble = _dense_mxu_schur_solve if solve == DENSE_OBS_AT else _dense_schur_solve
+    return assemble(U_d, W, Vinv, b, prob, n_cam, prob.cam_opt_mask.to(U_d.dtype))
 
 
 def _cg_of(system, prob, n_cam, cfg, x0_cam, stats, reduce=None):
@@ -741,15 +781,12 @@ def _back_substitute(dcam, system, prob, n_pts, reduce=None):
     return dcam, dpt
 
 
-def _dense_mode(cfg, reduce=None):
-    return cfg.schur_mode == "dense" and not cfg.tie_tail and reduce is None
-
-
 def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=None,
             x0_cam=None, stats=None, reduce=None):
     """One damped Schur-complement solve. Returns (dcam (M, P), dpt (N, 3)).
 
-    x0_cam: CG warm start (the previous step's dcam); ignored by "dense".
+    x0_cam: CG warm start (the previous step's dcam); ignored by a dense
+    solve (_solve_of).
     reduce: the sum over the shards of a distributed solve (see _CG), taken
     where the JAX package takes its psum: g_cam, the right-hand side and,
     inside the CG, the operator results, the block-Jacobi diagonal and the
@@ -759,8 +796,9 @@ def lm_step(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=None, f_scale=Non
     stats = new_stats() if stats is None else stats
     system = _schur_system(r, J_cam, J_pt, lam, prob, n_cam, n_pts, cfg, loss=loss,
                            f_scale=f_scale, reduce=reduce)
-    if _dense_mode(cfg, reduce):
-        dcam = _dense_solve(system, prob, n_cam)
+    solve = _solve_of(prob, n_cam, cfg, reduce)
+    if solve != CG:
+        dcam = _dense_solve(system, prob, n_cam, solve)
     else:
         cg = _cg_of(system, prob, n_cam, cfg, x0_cam, stats, reduce=reduce)
         run_cg(lambda: cg.iterations(1), cg.status, 1, stats, read_first=True)
@@ -855,7 +893,8 @@ class _Iteration:
         self.residual_fn, self.jac_fn = residual_fn, jac_fn
         self.n_cam, self.n_pts, self.prob, self.cfg = n_cam, n_pts, prob, cfg
         self.loss, self.f_scale = loss, f_scale
-        self.dense = _dense_mode(cfg)
+        self.solve = _solve_of(prob, n_cam, cfg)
+        self.dense = self.solve != CG
         self.captures = captures
         self.k = cg_block(cfg.cg_iters, captures)
         dev, dt = cam.device, cam.dtype
@@ -883,7 +922,7 @@ class _Iteration:
         self.system = _schur_system(r, J_cam, J_pt, self.lam, self.prob, self.n_cam, self.n_pts,
                                     self.cfg, loss=self.loss, f_scale=self.f_scale)
         if self.dense:
-            self.dcam = _dense_solve(self.system, self.prob, self.n_cam)
+            self.dcam = _dense_solve(self.system, self.prob, self.n_cam, self.solve)
         else:
             self.cg = _cg_of(self.system, self.prob, self.n_cam, self.cfg, self.dcam_prev,
                              self.stats)

@@ -9,8 +9,8 @@ by the linear (DLT) method, one batched 4x4 SVD. The duos come from the
 observation table on the device, by a key lookup of each track's camera
 pairs in the pairs list (`observation_duos`), and the per-track mean is a
 segment sum whose order does not depend on the device (`segment_mean`).
-`build_triangulation_batch` (the duos of a dense C, a loop over the pairs)
-stays as the tests' reference.
+`init_pts3d` takes the tracks layer's correspondence matrix C and reads it
+into that table.
 """
 
 import itertools
@@ -104,35 +104,6 @@ def linear_triangulation(P1, P2, pts1, pts2):
     return X[..., :3] / X[..., 3:4]
 
 
-def build_triangulation_batch(C, pairs_to_triangulate):
-    """Flatten (pair, track) observation duos of C (2M, N) into one batch:
-    dict of cam_a, cam_b (B,), pts_a, pts_b (B, 2), track (B,); None when
-    there is no duo."""
-    n_cam = C.shape[0] // 2
-    mask = ~np.isnan(C[::2])
-    cam_a, cam_b, pa, pb, track = [], [], [], [], []
-    for (ci, cj) in pairs_to_triangulate:
-        if ci >= n_cam or cj >= n_cam:
-            continue
-        sel = np.where(mask[ci] & mask[cj])[0]
-        if sel.size == 0:
-            continue
-        cam_a.append(np.full(sel.size, ci, dtype=np.int32))
-        cam_b.append(np.full(sel.size, cj, dtype=np.int32))
-        pa.append(C[2 * ci: 2 * ci + 2, sel].T)
-        pb.append(C[2 * cj: 2 * cj + 2, sel].T)
-        track.append(sel.astype(np.int32))
-    if not cam_a:
-        return None
-    return {
-        "cam_a": np.concatenate(cam_a),
-        "cam_b": np.concatenate(cam_b),
-        "pts_a": np.concatenate(pa, axis=0),
-        "pts_b": np.concatenate(pb, axis=0),
-        "track": np.concatenate(track),
-    }
-
-
 def pair_lookup(pairs_to_triangulate, n_cam, device):
     """The listed pairs with both cameras below n_cam, for a key lookup:
     (keys, first) on device, keys = min(i, j) * n_cam + max(i, j) sorted
@@ -172,8 +143,8 @@ def _candidates(pts_ind, cam_ind, n_pts, n_cam, lookup, reads=None):
 def tracks_with_a_pair(pts_ind, cam_ind, n_pts, n_cam, lookup, reads=None):
     """(n_pts,) bool: the tracks of the table (sorted by point) that some
     listed pair of their cameras observes (for the pair (i, i), a track
-    that camera i observes), as filter_C_using_pairs_to_triangulate's test
-    m^T P m > 0. lookup: pair_lookup's; its read counted in reads."""
+    that camera i observes): m^T P m > 0, m the track's cameras and P the
+    listed pairs. lookup: pair_lookup's; its read counted in reads."""
     u, _, _, n = _candidates(pts_ind, cam_ind, n_pts, n_cam, lookup, reads)
     hits = torch.zeros(n_pts, dtype=torch.int64, device=pts_ind.device)
     return hits.index_add_(0, pts_ind[u], n) > 0
@@ -183,9 +154,8 @@ def observation_duos(pts_ind, cam_ind, n_pts, n_cam, lookup, reads=None):
     """The (pair, track) observation duos of the table (sorted by point),
     from it by a key lookup: for every listed pair (i, j) and every track
     that both cameras observe, the rows (a, b) of its observations in i and
-    in j, as build_triangulation_batch's duos. Ordered by track, then by
-    (u, v) within the track, then as listed. Returns (a, b) (D,) int64;
-    its two reads counted in reads."""
+    in j. Ordered by track, then by (u, v) within the track, then as
+    listed. Returns (a, b) (D,) int64; its two reads counted in reads."""
     u, v, lo, n = _candidates(pts_ind, cam_ind, n_pts, n_cam, lookup, reads)
     total = host_read(n.sum(), reads)
     c = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n, output_size=total)

@@ -199,7 +199,8 @@ class DistributedLM:
         from sat_bundleadjust_tpu_torch.ba.solver import make_fns
 
         self.mesh = mesh if mesh is not None else make_mesh()
-        self.cfg = cfg._replace(schur_mode="cg")
+        self.cfg = cfg._replace(schur_mode=lm_ops.schur_solve(
+            self.mesh.device, p.n_cam, cfg.schur_mode, cfg.tie_tail, distributed=True))
         if not self.cfg.cg_iters:  # the adaptive budget of ops/lm.build_solve
             self.cfg = self.cfg._replace(cg_iters=lm_ops.default_cg_iters(p.n_cam))
         self.p = p
@@ -241,13 +242,11 @@ class DistributedLM:
         n = self.pts_opt_mask.shape[0]
         pmask_loc = torch.where(tg < n, self.pts_opt_mask[torch.clamp(tg, max=n - 1)],
                                 torch.ones_like(self.pts_opt_mask[:1]))
-        empty = torch.zeros(0, dtype=torch.int64, device=self.mesh.device)
         return lm_ops.LMProblem(
             pts_ind=obs["pts_loc"], cam_ind=obs["cam_ind"], pts2d=obs["pts2d"],
             weights=obs["weights"], cam_opt_mask=self.cam_opt_mask, pts_opt_mask=pmask_loc,
-            pair_k1=empty, pair_k2=empty, pt_gather=obs["pt_gather"],
-            cam_gather=obs["cam_gather"], cam_ind_pt=obs.get("cam_ind_pt"),
-            pts_ind_cam=obs.get("pts_ind_cam"),
+            pt_gather=obs["pt_gather"], cam_gather=obs["cam_gather"],
+            cam_ind_pt=obs.get("cam_ind_pt"), pts_ind_cam=obs.get("pts_ind_cam"),
         )
 
     def _reduce(self, t):
@@ -418,15 +417,14 @@ def make_distributed_solver(p, ls_params=None, mesh=None, time_collectives=False
     DistributedLM (only this rank's shard rows are built). The solver
     serves every round of one problem structure (soft-L1, outlier probe,
     L2)."""
-    from sat_bundleadjust_tpu_torch.ba.solver import init_optimization_config
+    from sat_bundleadjust_tpu_torch.ba.solver import init_optimization_config, tie_tail
     from sat_bundleadjust_tpu_torch.parallel.multihost import local_shard_ids
 
     ls = init_optimization_config(ls_params)
     cfg = lm_ops.LMConfig(
         loss=ls["loss"], f_scale=float(ls["f_scale"]), max_iter=int(ls["max_iter"]),
-        ftol=float(ls["ftol"]), xtol=float(ls["xtol"]), schur_mode="cg",
-        cg_coarse_k=lm_ops.default_coarse_k(p.n_cam),
-        tie_tail=p.n_params_k if getattr(p, "common_k", False) else 0,
+        ftol=float(ls["ftol"]), xtol=float(ls["xtol"]),
+        cg_coarse_k=lm_ops.default_coarse_k(p.n_cam), tie_tail=tie_tail(p),
     )
     mesh = mesh if mesh is not None else make_mesh()
     sharded = shard_observations(p.pts_ind, p.cam_ind, p.pts2d, p.pts2d_w, p.n_pts, mesh.size,

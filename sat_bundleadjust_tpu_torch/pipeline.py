@@ -343,9 +343,9 @@ class BundleAdjustmentPipeline:
         _, _, _, ba_e, _ = self._run_ba({"max_iter": 1, "verbose": 0}, verbose=False)
         p = ba_outliers.rm_outliers(ba_e, self.ba_params, predef_thr=thr, verbose=False,
                                     device=self.device)
-        if p.C.shape[0] != self.C.shape[0]:
+        if p.n_cam != self.C.shape[0] // 2:
             raise Error("At least one camera was lost, there might be something wrong with the input images")
-        self.C = p.C
+        self.C = ft_build.correspondence_matrix(p)
         self.pts3d = p.pts3d
         self.n_pts_fix = p.n_pts_fix
         self.C_v2 = self.C_v2[:, p.pts_prev_indices]
@@ -471,6 +471,12 @@ class BundleAdjustmentPipeline:
                     f.write("\n")
         flush_print("All estimated camera parameters written at {}/cam_params\n".format(self.out_dir))
 
+    def _points_seen_by(self, cam_idx):
+        """The adjusted points of the tracks that camera cam_idx of the BA
+        problem observes, in track order."""
+        p = self.ba_params
+        return p.pts3d_ba[p.pts_ind[p.cam_ind == cam_idx]]
+
     def save_corrected_rpcs(self):
         """rpc: the adjusted cameras' RPCs, refit in one batched program per
         margin round on the device, and the already adjusted ones as they
@@ -487,8 +493,7 @@ class BundleAdjustmentPipeline:
             write_rpc_file(self.cameras[cam_idx], fnames[cam_idx])
         cam_prev = list(self.ba_params.cam_prev_indices)
         new_indices = list(range(self.n_adj, self.n_adj + self.n_new))
-        pts_seen = [self.ba_params.pts3d_ba[~np.isnan(self.ba_params.C[2 * cam_prev.index(c)])]
-                    for c in new_indices]
+        pts_seen = [self._points_seen_by(cam_prev.index(c)) for c in new_indices]
         self.refit_stats = {}
         with span("pipeline.refit", self.timing, "refit_s"):
             results = ba_rpcfit.fit_rpcs_batched(
@@ -510,7 +515,7 @@ class BundleAdjustmentPipeline:
         results = []
         with span("pipeline.refit", self.timing, "refit_s"):
             for cam_idx, (fn, cam) in enumerate(zip(fnames, self.corrected_cameras)):
-                pts_seen = self.ba_params.pts3d_ba[~np.isnan(self.ba_params.C[2 * cam_idx])]
+                pts_seen = self._points_seen_by(cam_idx)
                 rpc_calib, err, margin = ba_rpcfit.fit_rpc_from_projection_matrix(
                     cam, self.global_transform, self.images[cam_idx].rpc,
                     self.images[cam_idx].offset, pts_seen)
@@ -551,11 +556,11 @@ class BundleAdjustmentPipeline:
         """Per-image SVG with the track observations."""
         from sat_bundleadjust_tpu_torch.utils.viz import save_pts2d_as_svg
 
-        mask = ~np.isnan(self.ba_params.C[::2])
-        for cam_idx, cam_prev_idx in enumerate(self.ba_params.cam_prev_indices):
+        p = self.ba_params
+        for cam_idx, cam_prev_idx in enumerate(p.cam_prev_indices):
             cam_id = loader.get_id(self.images[cam_prev_idx].geotiff_path)
             svg_fname = "{}/ba_figures/track_obs/{}.svg".format(self.out_dir, cam_id)
-            pts2d = self.ba_params.C[2 * cam_idx: 2 * cam_idx + 2, mask[cam_idx]].T.copy()
+            pts2d = p.pts2d[p.cam_ind == cam_idx]
             offset = self.images[cam_prev_idx].offset
             if self.cam_model == "rpc":
                 pts2d[:, 0] -= offset["col0"]
@@ -569,8 +574,8 @@ class BundleAdjustmentPipeline:
         viz.draw_image_footprints(
             os.path.join(self.out_dir, "ba_figures/image_footprints_and_aoi.png"), footprints, self.aoi)
         viz.save_connectivity_graph(
-            os.path.join(self.out_dir, "ba_figures/connectivity_graph.png"), self.ba_params.C,
-            min_matches=0)
+            os.path.join(self.out_dir, "ba_figures/connectivity_graph.png"),
+            ft_build.correspondence_matrix(self.ba_params), min_matches=0)
         viz.save_histogram_of_errors(
             os.path.join(self.out_dir, "ba_figures/error_histograms.png"), self.init_e, self.ba_e)
         aoi_roi = self.aoi if self.predefined_aoi else None

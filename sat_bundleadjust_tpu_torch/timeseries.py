@@ -17,6 +17,7 @@ import shutil
 import sys
 
 import numpy as np
+import torch
 
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
@@ -368,30 +369,36 @@ class Scene:
         return ba_method in ["ba_global", "ba_sequential", "ba_bruteforce"]
 
     def compute_reprojection_error_before_and_after_bundle_adjust(self):
-        """Mean reprojection error of the tracks, triangulated and
-        reprojected with the initial RPCs and with the written .rpc_adj
-        files (re-read from disk)."""
+        """Mean reprojection error of the tracks of the last BA problem's
+        observation table, triangulated and reprojected with the initial
+        RPCs and with the written .rpc_adj files (re-read from disk)."""
         from sat_bundleadjust_tpu_torch.models.cameras import apply_rpc_projection_np
-        from sat_bundleadjust_tpu_torch.ops.triangulate import init_pts3d
+        from sat_bundleadjust_tpu_torch.ops.triangulate import triangulate_table
 
         im_fnames = [im.geotiff_path for im in self.ba_pipeline.images]
-        C = self.ba_pipeline.ba_params.C
-        pairs = self.ba_pipeline.ba_params.pairs_to_triangulate
+        p = self.ba_pipeline.ba_params
+        table = [torch.as_tensor(x, device=self.device)
+                 for x in (p.pts_ind.astype(np.int64), p.cam_ind.astype(np.int64), p.pts2d)]
+
+        def triangulate(rpcs):
+            pts3d, _ = triangulate_table(*table, p.n_pts, p.n_cam, rpcs, "rpc",
+                                         p.pairs_to_triangulate)
+            return pts3d.cpu().numpy()
 
         rpcs_init = loader.load_rpcs_from_dir(
             im_fnames, os.path.join(self.dst_dir, "rpcs_init"), extension="rpc", verbose=False)
         rpcs_ba = loader.load_rpcs_from_dir(
             im_fnames, os.path.join(self.dst_dir, self.ba_method, "rpcs_adj"),
             extension="rpc_adj", verbose=False)
-        pts3d_before = init_pts3d(C, rpcs_init, "rpc", pairs, device=self.device)
-        pts3d_after = init_pts3d(C, rpcs_ba, "rpc", pairs, device=self.device)
+        pts3d_before = triangulate(rpcs_init)
+        pts3d_after = triangulate(rpcs_ba)
 
         err_before, err_after = [], []
-        for cam_idx in range(C.shape[0] // 2):
-            sel = np.where(~np.isnan(C[2 * cam_idx]))[0]
-            obs2d = C[(cam_idx * 2): (cam_idx * 2 + 2), sel].T
-            proj_b = apply_rpc_projection_np(rpcs_init[cam_idx], pts3d_before[sel])
-            proj_a = apply_rpc_projection_np(rpcs_ba[cam_idx], pts3d_after[sel])
+        for cam_idx in range(p.n_cam):
+            sel = p.cam_ind == cam_idx  # the camera's tracks, in ascending order
+            obs2d, pts = p.pts2d[sel], p.pts_ind[sel]
+            proj_b = apply_rpc_projection_np(rpcs_init[cam_idx], pts3d_before[pts])
+            proj_a = apply_rpc_projection_np(rpcs_ba[cam_idx], pts3d_after[pts])
             err_before.extend(np.linalg.norm(proj_b - obs2d, axis=1).tolist())
             err_after.extend(np.linalg.norm(proj_a - obs2d, axis=1).tolist())
         return float(np.mean(err_before)), float(np.mean(err_after))

@@ -111,11 +111,20 @@ def feature_tracks_from_pairwise_matches(features, pairwise_matches, pairs_to_tr
     C_v2[im_j, t_idx] = kp_j
 
     # the tracks that a listed pair of their cameras observes, by the table's
-    # key lookup (ba/outliers.filter_C_using_pairs_to_triangulate's test)
+    # key lookup (ops/triangulate.tracks_with_a_pair's test m^T P m > 0)
     pt, cam = (torch.as_tensor(a) for a in np.nonzero(~np.isnan(C[::2]).T))
     keep = tracks_with_a_pair(pt, cam, n_tracks, n_cams,
                               pair_lookup(pairs_to_triangulate, n_cams, "cpu")).numpy()
     return C[:, keep], C_v2[:, keep]
+
+
+def correspondence_matrix(p):
+    """The (2M, N) correspondence matrix (NaN where unobserved) of a BA
+    problem's observation table: its tracks in this layer's format."""
+    C = np.full((2 * p.n_cam, p.n_pts), np.nan)
+    C[2 * p.cam_ind, p.pts_ind] = p.pts2d[:, 0]
+    C[2 * p.cam_ind + 1, p.pts_ind] = p.pts2d[:, 1]
+    return C
 
 
 def check_pairs(camera_indices, pairs_to_match, pairs_to_triangulate):

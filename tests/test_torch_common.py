@@ -50,7 +50,6 @@ def jax_state(p):
         "pts_opt_mask": p.pts_opt_mask,
         "pairs_to_triangulate": np.asarray(p.pairs_to_triangulate).reshape(-1, 2),
         "correction_params": p.cam_params_to_optimize,
-        "C": p.C,
         "pts_prev_indices": p.pts_prev_indices,
         "cam_prev_indices": p.cam_prev_indices,
         "ref_cam_weight": p.ref_cam_weight,

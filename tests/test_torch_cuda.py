@@ -116,17 +116,19 @@ def schur_operands(M, N, tp_max, P, empty_camera=False, full=False, seed=0):
     return tuple(torch.from_numpy(a) for a in (W_pt, cam_ind_pt, W_cm, pts_ind_cam))
 
 
-def numpy_problem(p, device):
+def numpy_problem(p, device, solve):
     """The LMProblem of a BAParams from the numpy builders of ops/lm.py,
     each table uploaded as it is: the reference of ops/lm.problem_tables
     (the tables ba/solver.build_problem builds where the solver runs), with
-    its rules for the dual layouts and obs_at."""
+    its rules for the dual layouts and the dense solves' tables (the pairs
+    for DENSE_PAIRS, obs_at for DENSE_OBS_AT, none for CG)."""
     K, N, M = p.n_obs, p.n_pts, p.n_cam
-    pair_k1, pair_k2 = tlm.build_intra_track_pairs(p.pts_ind, N)
+    pair_k1, pair_k2 = (tlm.build_intra_track_pairs(p.pts_ind, N) if solve == tlm.DENSE_PAIRS
+                        else (None, None))
     pt_table = tlm.build_gather_segments(p.pts_ind, N)
     cam_table = tlm.build_gather_segments(p.cam_ind, M)
     dual_ok = K > 0 and pt_table.size <= 4 * K and cam_table.size <= 4 * K
-    obs_at = tlm.build_obs_at(p.pts_ind, p.cam_ind, N, M) if N * M <= tlm.OBS_AT_MAX else None
+    obs_at = tlm.build_obs_at(p.pts_ind, p.cam_ind, N, M) if solve == tlm.DENSE_OBS_AT else None
 
     def idx(a, dtype=torch.int64):
         return None if a is None else torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -855,15 +857,31 @@ def test_stage_tables_built_on_the_card(cuda):
     profiling.reset()
     assert len(init) == 1 and init[0][5]["tables_on"] == "cuda"
     assert init[0][5]["h2d_bytes"] == p.n_obs * (4 + 4 + 16 + 8)
-    assert_same_problem(solver.prob, numpy_problem(p, cuda))
+    assert_same_problem(solver.prob, numpy_problem(p, cuda, tlm.CG))
     assert solver.prob.cam_ind_pt is not None and solver.prob.obs_at is None
 
     host = tsolver.BASolver(p, device=cuda)
-    host.prob = numpy_problem(p, cuda)
+    host.prob = numpy_problem(p, cuda, tlm.CG)
     (_, (cam, pts), _, err, info), (_, (cam_h, pts_h), _, err_h, info_h) = (
         s.solve(None) for s in (solver, host))
     assert torch.equal(cam, cam_h) and torch.equal(pts, pts_h) and np.array_equal(err, err_h)
     assert info["iterations"] == info_h["iterations"] > 1
+
+
+@pytest.mark.cuda
+def test_default_solver_on_the_card_builds_only_the_cg_tables(cuda):
+    """A default BASolver on the card runs the CG (ops/lm.schur_solve) and
+    builds none of the dense solves' tables, though obs_at would fit (N M =
+    40 000); one that asks for the dense solve gets obs_at and no pairs."""
+    p = demo.scene_to_baparams(demo.make_scene_arrays(n_cam=20, n_pts=2000, seed=0,
+                                                      device="cpu"))
+    solver = tsolver.BASolver(p, device=cuda)
+    assert solver.mode == "cg" and solver.config().schur_mode == "cg"
+    assert solver.prob.pair_k1 is None and solver.prob.pair_k2 is None
+    assert solver.prob.obs_at is None and solver.prob.cam_ind_pt is not None
+    dense = tsolver.BASolver(p, schur_mode="dense", device=cuda)
+    assert dense.mode == "dense" and dense.prob.obs_at is not None
+    assert dense.prob.pair_k1 is None
 
 
 @pytest.mark.cuda

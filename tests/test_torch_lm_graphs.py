@@ -71,8 +71,9 @@ def _per_iteration_solve(solver, cfg, stats):
         r, J_cam, J_pt = solver.jac_fn(cam, pts)
         system = tlm._schur_system(r, J_cam, J_pt, lam, prob, p.n_cam, p.n_pts, cfg,
                                    loss=cfg.loss, f_scale=cfg.f_scale)
-        if tlm._dense_mode(cfg):
-            dcam = tlm._dense_solve(system, prob, p.n_cam)
+        solve = tlm._solve_of(prob, p.n_cam, cfg)
+        if solve != tlm.CG:
+            dcam = tlm._dense_solve(system, prob, p.n_cam, solve)
         else:
             dcam = _per_iteration_cg(tlm._cg_of(system, prob, p.n_cam, cfg, dcam_prev, stats),
                                      stats)

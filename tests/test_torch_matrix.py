@@ -318,7 +318,7 @@ def test_convert_carries_matrix_baparams():
         "cam_ind": jp.cam_ind, "pts2d": jp.pts2d, "pts2d_w": jp.pts2d_w,
         "cam_opt_mask": jp.cam_opt_mask, "pts_opt_mask": jp.pts_opt_mask,
         "pairs_to_triangulate": np.asarray(jp.pairs_to_triangulate),
-        "correction_params": jp.cam_params_to_optimize, "C": jp.C,
+        "correction_params": jp.cam_params_to_optimize,
     })
     for name in ("pts_ind", "cam_ind", "pts2d", "pts3d", "cam_opt_mask", "pts_opt_mask"):
         np.testing.assert_array_equal(getattr(cp, name), getattr(tp, name), err_msg=name)

@@ -175,11 +175,14 @@ def test_triangulation_chunk_knob_matches_jax(monkeypatch):
     tests/test_torch_slice.py) and identical to the port's one-chunk run."""
     scene = jax_scene(n_cam=5, n_pts=120, seed=12)
     jp, tp = both_problems(scene, dense_c=True)
-    whole = ttri.init_pts3d(tp.C, tp.cameras, "rpc", tp.pairs_to_triangulate, device="cpu")
+    whole = ttri.init_pts3d(jp.C, tp.cameras, "rpc", tp.pairs_to_triangulate, device="cpu")
     monkeypatch.setenv("SATBA_TRIANG_CHUNK", "37")
     pj = jtri.init_pts3d(jp.C, jp.cameras, "rpc", jp.pairs_to_triangulate)
-    pt = ttri.init_pts3d(tp.C, tp.cameras, "rpc", tp.pairs_to_triangulate, device="cpu")
-    assert ttri.build_triangulation_batch(tp.C, tp.pairs_to_triangulate)["track"].size > 37 * 3
+    pt = ttri.init_pts3d(jp.C, tp.cameras, "rpc", tp.pairs_to_triangulate, device="cpu")
+    pts, cam = torch.as_tensor(tp.pts_ind).long(), torch.as_tensor(tp.cam_ind).long()
+    duos, _ = ttri.observation_duos(pts, cam, tp.n_pts, tp.n_cam,
+                                    ttri.pair_lookup(tp.pairs_to_triangulate, tp.n_cam, "cpu"))
+    assert duos.numel() > 37 * 3
     np.testing.assert_allclose(pt, pj, rtol=0, atol=1e-4)
     np.testing.assert_array_equal(pt, whole)
 

@@ -30,10 +30,7 @@ def _assert_same_problem(jp, tp):
         np.testing.assert_array_equal(a, b, err_msg=name)
     for name in SCALARS:
         assert getattr(tp, name) == getattr(jp, name), name
-    if jp.C is None:
-        assert tp.C is None
-    else:
-        np.testing.assert_array_equal(tp.C, jp.C)
+    assert not hasattr(tp, "C")  # the table is the port's only copy of the observations
     for a, b in zip(tp.rpcs, rpc_arrays(jp.rpcs)):
         np.testing.assert_array_equal(a.numpy(), b)
     np.testing.assert_array_equal(tp.opt_block(), jp.opt_block())
@@ -192,11 +189,24 @@ def test_index_tables_match_jax(seed, obs_per_pt):
     assert tlm.build_obs_at(*dup, N, M) is None and jlm.build_obs_at(*dup, N, M) is None
 
 
-def _case_scene(case):
-    """The scene of a test_build_problem_matches_jax case: the demo's table
-    with ragged tracks and cameras (150 observations dropped), a camera with
-    no observation, repeated (point, camera) keys, no observation at all,
-    or frozen cameras and points."""
+def _case_problems(case):
+    """The problems (JAX, port) of a test_build_problem_matches_jax case:
+    the demo's table with ragged tracks and cameras (150 observations
+    dropped), a camera with no observation, repeated (point, camera) keys,
+    no observation at all, frozen cameras and points, 200 cameras, or
+    perspective cameras with COMMON_K."""
+    if case == "common_k":
+        from sat_bundleadjust_tpu.ba.params import BAParams as JBAParams
+        from sat_bundleadjust_tpu_torch.utils import demo
+
+        s = demo.make_matrix_scene("perspective", n_cam=8, n_pts=300)
+        args = (s["pts_ind"], s["cam_ind"], s["pts2d"], s["pts0"], s["cameras_init"],
+                "perspective", s["camera_centers"], s["pairs"],
+                {"verbose": False, "correction_params": ["R", "T", "K", "COMMON_K"]})
+        return JBAParams.from_obs_table(*args), tparams.BAParams.from_obs_table(*args)
+    d = {"n_cam_fix": 2, "n_pts_fix": 7} if case == "frozen" else None
+    if case == "over_192_cameras":
+        return both_problems(jax_scene(n_cam=200, n_pts=1500, seed=6), d=d)
     scene = jax_scene(n_cam=8, n_pts=400, seed=6)
     rng = np.random.RandomState(6)
     keep = np.ones(len(scene["pts_ind"]), bool)
@@ -207,28 +217,50 @@ def _case_scene(case):
     elif case == "empty":
         keep[:] = False
     elif case == "repeats":
-        return _with_repeats(scene)
-    return dict(scene, **{k: scene[k][keep] for k in ("pts_ind", "cam_ind", "pts2d")})
+        return both_problems(_with_repeats(scene), d=d)
+    return both_problems(dict(scene, **{k: scene[k][keep] for k in ("pts_ind", "cam_ind",
+                                                                    "pts2d")}), d=d)
 
 
-@pytest.mark.parametrize("case", ["demo", "ragged", "unobserved_camera", "repeats", "empty",
-                                  "frozen"])
-def test_build_problem_matches_jax(case):
-    """The port's LMProblem, its index tables built by torch operations
-    (ops/lm.problem_tables, here on CPU tensors), holds JAX's tables and the
-    numpy builders'; the kernel's two layouts are int32 and every other
-    index table int64."""
-    d = {"n_cam_fix": 2, "n_pts_fix": 7} if case == "frozen" else None
-    jp, tp = both_problems(_case_scene(case), d=d)
-    jprob, jmode = jsolver.build_problem(jp)
-    tprob, tmode = tsolver.build_problem(tp, "cpu")
-    assert tmode == jmode == "dense"
-    assert tsolver.build_problem(tp, "cpu", "cg")[1] == "cg"
-    assert_same_problem(tprob, numpy_problem(tp, "cpu"))
-    assert (tprob.obs_at is None) == (case == "repeats")
+# the tables that only a dense solve reads, by the solve that reads them
+DENSE_TABLES = {tlm.DENSE_OBS_AT: ("obs_at",), tlm.DENSE_PAIRS: ("pair_k1", "pair_k2"),
+                tlm.CG: ()}
+
+
+@pytest.mark.parametrize("case,schur_mode,solve", [
+    pytest.param("demo", None, tlm.DENSE_OBS_AT, id="demo"),
+    pytest.param("ragged", None, tlm.DENSE_OBS_AT, id="ragged"),
+    pytest.param("unobserved_camera", None, tlm.DENSE_OBS_AT, id="unobserved_camera"),
+    pytest.param("repeats", None, tlm.DENSE_PAIRS, id="repeats"),
+    pytest.param("empty", None, tlm.DENSE_OBS_AT, id="empty"),
+    pytest.param("frozen", None, tlm.DENSE_OBS_AT, id="frozen"),
+    pytest.param("over_192_cameras", None, tlm.CG, id="over_192_cameras"),
+    pytest.param("common_k", None, tlm.CG, id="common_k"),
+    pytest.param("demo", "cg", tlm.CG, id="explicit_cg"),
+])
+def test_build_problem_matches_jax(case, schur_mode, solve):
+    """The port's LMProblem on the CPU, its index tables built by torch
+    operations (ops/lm.problem_tables) for the Schur solve ops/lm.schur_solve
+    chooses: dense up to 192 cameras (over obs_at; over the intra-track
+    pairs where a (track, camera) pair repeats), the CG above 192 cameras,
+    for COMMON_K and where it is asked for. The tables that only another
+    solve reads are None; every table built holds JAX's tables and those of
+    the numpy functions of ops/lm.py; the kernel's two layouts are int32 and every other index
+    table int64."""
+    jp, tp = _case_problems(case)
+    jprob, _ = jsolver.build_problem(jp, schur_mode)
+    tprob, tmode = tsolver.build_problem(tp, "cpu", schur_mode)
+    assert tmode == ("cg" if solve == tlm.CG else "dense")
+    cfg = tlm.LMConfig(schur_mode=tmode, tie_tail=tsolver.tie_tail(tp))
+    assert tlm._solve_of(tprob, tp.n_cam, cfg) == solve
+    for name in ("pair_k1", "pair_k2", "obs_at"):
+        assert (getattr(tprob, name) is None) == (name not in DENSE_TABLES[solve]), name
+    assert_same_problem(tprob, numpy_problem(tp, "cpu", solve))
     assert (tprob.cam_ind_pt is None) == (case == "empty")
     for name in tlm.LMProblem._fields:
         a, b = getattr(tprob, name), getattr(jprob, name)
+        if a is None and name in ("pair_k1", "pair_k2", "obs_at"):
+            continue
         assert (a is None) == (b is None), name
         if a is None:
             continue

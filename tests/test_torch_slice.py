@@ -7,6 +7,7 @@ outlier thresholds (ba/outliers.py) on their own."""
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_common import both_problems, jax_scene
 
@@ -22,21 +23,51 @@ SOFT_L1 = {"loss": "soft_l1", "f_scale": 1.0, "max_iter": 300}
 
 
 def _removed(p, C_new):
-    """(camera, track) pairs of the observations C_new drops from p.C."""
+    """(camera, track) pairs of the observations C_new drops from the JAX
+    problem p's C."""
     gone = ~np.isnan(p.C[::2]) & np.isnan(C_new[::2])
     return set(zip(*np.nonzero(gone)))
+
+
+def _dropped(p, p2):
+    """(camera, track) pairs of the observations of p that the problem p2
+    (rm_outliers' answer) no longer holds, tracks numbered as in p."""
+    track = np.searchsorted(p.pts_prev_indices, p2.pts_prev_indices)[p2.pts_ind]
+    kept = set(zip(p2.cam_ind.tolist(), track.tolist()))
+    return set(zip(p.cam_ind.tolist(), p.pts_ind.tolist())) - kept
+
+
+def _flagged(err, p, **kw):
+    """The port's rm_outliers(err, p) and the count of the observations it
+    flagged (those above their camera's threshold), as its `ba.outliers`
+    span records it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.utils import profiling
+
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        p2 = tout.rm_outliers(err, p, device="cpu", **kw)
+    (outer,) = [s[5] for s in profiling.spans() if s[2] == "ba.outliers"]
+    profiling.reset()
+    return p2, outer["removed"]
 
 
 def test_triangulation_matches_jax():
     scene = jax_scene(n_cam=6, n_pts=400, seed=12)
     jp, tp = both_problems(scene, dense_c=True)
     jb = jtri.build_triangulation_batch(jp.C, jp.pairs_to_triangulate)
-    tb = ttri.build_triangulation_batch(tp.C, tp.pairs_to_triangulate)
-    assert jb.keys() == tb.keys()
-    for k in jb:
-        np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+    pts, cam = torch.as_tensor(tp.pts_ind).long(), torch.as_tensor(tp.cam_ind).long()
+    a, b = ttri.observation_duos(pts, cam, tp.n_pts, tp.n_cam,
+                                 ttri.pair_lookup(tp.pairs_to_triangulate, tp.n_cam, "cpu"))
+    a, b = a.numpy(), b.numpy()
+    got = sorted(zip(tp.cam_ind[a].tolist(), tp.cam_ind[b].tolist(), tp.pts_ind[a].tolist(),
+                     map(tuple, tp.pts2d[a].tolist()), map(tuple, tp.pts2d[b].tolist())))
+    want = sorted(zip(jb["cam_a"].tolist(), jb["cam_b"].tolist(), jb["track"].tolist(),
+                      map(tuple, jb["pts_a"].tolist()), map(tuple, jb["pts_b"].tolist())))
+    assert got == want and len(got) > 0
     pj = jtri.init_pts3d(jp.C, jp.cameras, "rpc", jp.pairs_to_triangulate)
-    pt = ttri.init_pts3d(tp.C, tp.cameras, "rpc", tp.pairs_to_triangulate, device="cpu")
+    pt = ttri.init_pts3d(jp.C, tp.cameras, "rpc", tp.pairs_to_triangulate, device="cpu")
     # f64 on both sides; the secant search stops on |lambda| < 1e-5, and
     # last-bit differences of the transcendentals can move that stop by
     # one step on a few duos: 1e-4 m (the points lie ~6.4e6 m from the
@@ -54,9 +85,18 @@ def test_outlier_thresholds_match_jax():
     e = np.abs(rng.randn(jp.n_obs)) + (rng.rand(jp.n_obs) < 0.03) * 20.0
     for kw in ({}, {"predef_thr": 1.5}, {"reference_rounding": True}):
         Cj, thr_j, nj = jout.compute_obs_to_remove(e, jp, **kw)
-        Ct, thr_t, nt = tout.compute_obs_to_remove(e, tp, **kw)
-        np.testing.assert_array_equal(Ct, Cj)
-        assert thr_t == thr_j and nt == nj > 0
+        if not kw:
+            thr_t = tout.camera_thresholds(torch.as_tensor(e), torch.as_tensor(tp.cam_ind).long(),
+                                           tp.n_cam)
+            assert thr_t.tolist() == thr_j
+        # the port's pass drops the flagged observations and the tracks they
+        # leave without 2 observations or a pair
+        tp2, nt = _flagged(e, tp, **kw)
+        flagged, dropped = _removed(jp, Cj), _dropped(tp, tp2)
+        assert nt == nj > 0 and flagged <= dropped
+        gone = set(range(tp.n_pts)) - set(np.searchsorted(tp.pts_prev_indices,
+                                                          tp2.pts_prev_indices).tolist())
+        assert all(track in gone for _, track in dropped - flagged)
 
 
 @pytest.mark.parametrize("mode", [None, "cg"])
@@ -75,18 +115,24 @@ def test_ba_stage_matches_jax(mode):
     np.testing.assert_allclose(te0, je0, rtol=1e-5, atol=1e-6)
     assert abs(tit1 - jit1) <= 2
 
-    Cj, thr_j, _ = jout.compute_obs_to_remove(je_soft, jp)
-    Ct, thr_t, _ = tout.compute_obs_to_remove(te_soft, tp)
-    rm_j, rm_t = _removed(jp, Cj), _removed(tp, Ct)
-    assert len(rm_j) >= 0.015 * jp.n_obs
-    for cam, pt in rm_j ^ rm_t:
-        k = np.nonzero((jp.cam_ind == cam) & (jp.pts_ind == pt))[0][0]
-        assert abs(je_soft[k] - thr_j[cam]) <= 1e-6 and abs(te_soft[k] - thr_t[cam]) <= 1e-6
-
+    # the observations each package's pass drops (the flagged ones, and the
+    # tracks they leave without 2 observations or a pair): the same, or
+    # apart only on tracks with an error within 1e-6 px of its camera's
+    # threshold on both sides
+    thr_j = np.asarray(jout.compute_obs_to_remove(je_soft, jp)[1])
+    thr_t = tout.camera_thresholds(torch.as_tensor(te_soft), torch.as_tensor(tp.cam_ind).long(),
+                                   tp.n_cam).numpy()
     jp2 = jout.rm_outliers(je_soft, jp)
     tp2 = tout.rm_outliers(te_soft, tp, device="cpu")
+    rm_j, rm_t = _dropped(jp, jp2), _dropped(tp, tp2)
+    assert len(rm_j) >= 0.015 * jp.n_obs
+    for _, pt in rm_j ^ rm_t:
+        k = np.nonzero(jp.pts_ind == pt)[0]
+        cams = jp.cam_ind[k]
+        assert np.any((np.abs(je_soft[k] - thr_j[cams]) <= 1e-6)
+                      & (np.abs(te_soft[k] - thr_t[cams]) <= 1e-6))
     if rm_j == rm_t:
-        for name in ("pts_ind", "cam_ind", "pts2d", "pts_prev_indices", "C"):
+        for name in ("pts_ind", "cam_ind", "pts2d", "pts_prev_indices"):
             np.testing.assert_array_equal(getattr(tp2, name), getattr(jp2, name), err_msg=name)
         np.testing.assert_allclose(tp2.pts3d, jp2.pts3d, rtol=0, atol=1e-4)
 

@@ -20,19 +20,26 @@ from sat_bundleadjust_tpu_torch.ops import lm as tlm
 @pytest.fixture(scope="module")
 def step_inputs():
     """r, J_cam, J_pt (f32 Jacobians) at a perturbed start of a 12-camera
-    problem, from the JAX package, and both packages' problems."""
+    problem, from the JAX package, and both packages' problems: the port's
+    with the tables of each solve (the intra-track pairs from
+    build_intra_track_pairs, since this table, whose pairs do not repeat,
+    gets obs_at)."""
     jp, tp = both_problems(jax_scene(n_cam=12, n_pts=800, seed=7))
     js = jsolver.BASolver(jp, schur_mode="cg")
     r, J_cam, J_pt = js.jac_fn(jnp.asarray(jp.opt_block()), jnp.asarray(jp.pts3d))
-    tprob, _ = tsolver.build_problem(tp, "cpu", "cg")
-    return dict(jprob=js.prob, tprob=tprob, M=jp.n_cam, N=jp.n_pts,
+    dense, mode = tsolver.build_problem(tp, "cpu", "dense")
+    assert mode == "dense" and dense.obs_at is not None and dense.pair_k1 is None
+    pairs = [t(a).long() for a in tlm.build_intra_track_pairs(tp.pts_ind, tp.n_pts)]
+    tprobs = {"cg": tsolver.build_problem(tp, "cpu", "cg")[0], "dense": dense,
+              "pairs": dense._replace(obs_at=None, pair_k1=pairs[0], pair_k2=pairs[1])}
+    return dict(jprob=js.prob, tprobs=tprobs, M=jp.n_cam, N=jp.n_pts,
                 r=np.asarray(r), J_cam=np.asarray(J_cam), J_pt=np.asarray(J_pt))
 
 
 def _steps(s, jcfg, tcfg, lam, pair_path=False):
-    jprob, tprob = s["jprob"], s["tprob"]
+    jprob, tprob = s["jprob"], s["tprobs"]["pairs" if pair_path else tcfg.schur_mode]
     if pair_path:
-        jprob, tprob = jprob._replace(obs_at=None), tprob._replace(obs_at=None)
+        jprob = jprob._replace(obs_at=None)
     jd = jlm.lm_step(jnp.asarray(s["r"]), jnp.asarray(s["J_cam"]), jnp.asarray(s["J_pt"]),
                      jnp.asarray(lam), jprob, s["M"], s["N"], jcfg)
     stats = tlm.new_stats()
