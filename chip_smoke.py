@@ -240,6 +240,10 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 # csrc/sift_blur.cu's check: rpc_date10.cli's one batch, 10 frames of
 # 2000x2000 px (the first octave 10 x 4000 x 4000)
 SIFT_BLUR_BATCH = (10, 2000, 2000)
+# csrc/rpc_triangulate.cu's check: rpc_ba1000_clean.robust's outlier pass,
+# ~1.13 M duos between 1 000 cameras (the ring's linear RPCs, 300 px of
+# parallax, dealt with stride 381 as portbench/scenes/orbit.py deals them)
+RPC_TRIANGULATE_SHAPE = {"cameras": 1000, "duos": 1_130_000, "stride": 381}
 
 
 def log(*args):
@@ -1092,8 +1096,8 @@ def ptxas_summary(log_text):
 
     out, name = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur|sift)_[a-z0-9_]+?)(ILi(\d+)E)?E",
-                      line)
+        m = re.search(r"Function properties for \S*?\d+((?:nn2|schur|sift|rpc)_[a-z0-9_]+?)"
+                      r"(ILi(\d+)E)?E", line)
         if m:
             name = m.group(1) + ("<{}>".format(m.group(3)) if m.group(3) else "")
         elif name and "spill stores" in line:
@@ -1472,6 +1476,83 @@ def check_sift_blur(dev):
             B, h, w, launches, r["ms"], r["bound_ms"], r["bound_ms"] / r["ms"]))
     assert same_up and same_blur, rec["bit_identical"]
     return rec
+
+
+def rpc_triangulate_flops(steps, newton):
+    """float64 operations of the RPC altitude search of duos that took
+    `steps` secant steps (an fma counted as 2, a division as 1), as
+    csrc/rpc_triangulate.cu writes it: a Newton step 4 x 37 fmas of the
+    polynomials and derivatives, 23 products of monomials, 14 operations of
+    the two quotients and 15 of the 2x2 step; a localization 10 more; a
+    projection 180; a secant step 23 besides its two correspondences; the
+    final localization."""
+    localization = newton * (4 * 37 * 2 + 23 + 14 + 15) + 10
+    return steps * (2 * (localization + 180) + 23) + localization
+
+
+def check_rpc_triangulate(dev):
+    """csrc/rpc_triangulate.cu at rpc_ba1000_clean.robust's shape: against
+    the plain version on the card (index_rpc and rpc_triangulation in
+    CHUNK-duo chunks, as the CPU runs it), and timed (CUDA events) against
+    its float64 bound and the plain version; the order (argsort by camera
+    a) timed alone."""
+    import numpy as np
+    import torch
+
+    from sat_bundleadjust_tpu_torch.models import ellipsoid
+    from sat_bundleadjust_tpu_torch.models.rpc import (NEWTON_ITERS, index_rpc,
+                                                       rpc_projection, stack_rpcs)
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    M, D, stride = (RPC_TRIANGULATE_SHAPE[k] for k in ("cameras", "duos", "stride"))
+    views = [(stride * i) % M for i in range(M)]
+    rpcs = stack_rpcs([demo.make_synthetic_rpc(view_dx=300.0 * np.cos(2 * np.pi * k / M),
+                                               view_dy=300.0 * np.sin(2 * np.pi * k / M))
+                       for k in views], dev)
+    g = torch.Generator(dev).manual_seed(0)
+    ca = torch.randint(0, M, (D,), device=dev, generator=g)
+    cb = (ca + torch.randint(1, M, (D,), device=dev, generator=g)) % M
+    u = torch.rand((3, D), dtype=torch.float64, device=dev, generator=g) * 2 - 1
+    lon = rpcs.lon_offset[0] + 0.9 * rpcs.lon_scale[0] * u[0]
+    lat = rpcs.lat_offset[0] + 0.9 * rpcs.lat_scale[0] * u[1]
+    h = 50.0 + 450.0 * u[2]
+    pa = torch.stack(rpc_projection(index_rpc(rpcs, ca), lon, lat, h), dim=-1)
+    pb = torch.stack(rpc_projection(index_rpc(rpcs, cb), lon, lat, h), dim=-1)
+    pb = pb + 0.1 * torch.randn((D, 2), dtype=torch.float64, device=dev, generator=g)
+
+    def plain():
+        return [ttri.rpc_triangulation(index_rpc(rpcs, ca[s:s + ttri.CHUNK]),
+                                       index_rpc(rpcs, cb[s:s + ttri.CHUNK]),
+                                       pa[s:s + ttri.CHUNK], pb[s:s + ttri.CHUNK])
+                for s in range(0, D, ttri.CHUNK)]
+
+    launches = ttri.rpc_triangulate.launches
+    out = ttri._rpc_kernel(rpcs, ca, cb, pa, pb)
+    want = plain()
+    torch.cuda.synchronize()
+    assert ttri.rpc_triangulate.launches == launches + 1
+    pts_p, err_p = (torch.cat(t) for t in zip(*want))
+    gap_m = float((ellipsoid.latlon_to_ecef_arr(out[1], out[0], out[2]) - pts_p).norm(dim=1).max())
+    gap_px = float((out[3] - err_p).abs().max())
+    steps = torch.bincount(out[4].long()).tolist()
+    flops = sum(n * rpc_triangulate_flops(k, NEWTON_ITERS) for k, n in enumerate(steps))
+    # bytes: a duo's order, two camera indices, two pixels in, five rows out
+    t_ops, t_bytes = flops / PEAK_F64_PER_S * 1e3, (D * 96 + M * 90 * 8) / PEAK_BYTES_PER_S * 1e3
+    r = {"shape": {"cameras": M, "duos": D}, "steps": steps, "gflop": flops / 1e9,
+         "max_point_gap_m": gap_m, "max_err_gap_px": gap_px,
+         "ms": cuda_ms(lambda: ttri._rpc_kernel(rpcs, ca, cb, pa, pb), 20),
+         "order_ms": cuda_ms(lambda: torch.argsort(ca), 20),
+         "plain_ms": cuda_ms(plain, 1, rounds=3),
+         "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    r["share_of_bound"] = r["bound_ms"] / r["ms"]
+    log("rpc_triangulate [{} duos, {} cameras; secant steps {}]: points within {:.3g} m and "
+        "err within {:.3g} px of the plain version; {:.4f} ms (its argsort {:.4f}), bound "
+        "{:.4f} ms ({}: {:.2f} GFLOP at 34 TFLOP/s f64; {:.1%} of it), plain version {:.1f} "
+        "ms".format(D, M, steps, gap_m, gap_px, r["ms"], r["order_ms"], r["bound_ms"],
+                    r["bound_by"], r["gflop"], r["share_of_bound"], r["plain_ms"]))
+    assert gap_m <= 1e-4 and gap_px <= 1e-6, r
+    return r
 
 
 def slice_c_tracks_with(ft, images, dev, features0):
@@ -2343,6 +2424,7 @@ def h2_rank(rank, world, port, cfg_path, out_dir):
     from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
     from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
     from sat_bundleadjust_tpu_torch.parallel import multihost
     from sat_bundleadjust_tpu_torch.pipeline import BundleAdjustmentPipeline
 
@@ -2363,7 +2445,7 @@ def h2_rank(rank, world, port, cfg_path, out_dir):
     sift.detect_sift_batch = counted_detect
     BundleAdjustmentPipeline.save_corrected_cameras = counted_save
     counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz, sift.blur,
-                sift.upsample2]
+                sift.upsample2, ttri.rpc_triangulate]
     for k in counters:
         k.launches = 0
     torch.cuda.synchronize()
@@ -2527,6 +2609,7 @@ def main():
     from sat_bundleadjust_tpu_torch.ops import nn2_match as nm
     from sat_bundleadjust_tpu_torch.ops import schur_matvec as smv
     from sat_bundleadjust_tpu_torch.ops import sift
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2562,6 +2645,8 @@ def main():
                  if "<" not in k or k.endswith(("<5>", "<13>")))
     for kernel in ("sift_blur_kernel<5>", "sift_blur_kernel<13>", "sift_upsample2_kernel"):
         assert kernel in ptxas, "no ptxas report of " + kernel
+    ptxas.update(ptxas_summary(build_logs.get("rpc_triangulate", "")))
+    assert "rpc_triangulate_kernel" in ptxas, "no ptxas report of rpc_triangulate_kernel"
     for name, line in ptxas.items():
         log("ptxas {}: {}".format(name, line))
 
@@ -2572,7 +2657,7 @@ def main():
     rec["slice_b"] = slice_b(dev, kernels)
     rec["small_reference"] = small_reference(dev)
     counters = [nm.nn2_batched_i8, nm.nn2_batched, nm.nn2_single, smv.schur_wz, sift.blur,
-                sift.upsample2]
+                sift.upsample2, ttri.rpc_triangulate]
     c = slice_c(dev, counters)
     rec["schur_wz"] = {"A": kernels["A"], "B": kernels["B"], "C": c["schur_wz"]}
     images, ft = c.pop("images"), c.pop("ft")
@@ -2581,6 +2666,7 @@ def main():
     rec["slice_c"] = c
     rec["sift_device_check"] = sift_device_check(dev, images, ft, c)
     rec["sift_blur"] = check_sift_blur(dev)
+    rec["rpc_triangulate"] = check_rpc_triangulate(dev)
     rec["slice_i"] = slice_i(dev, counters, images, ft)
     del ft
     rec["slice_d"] = slice_d(dev, counters, images)
@@ -2664,15 +2750,29 @@ def main():
             "at": "slice C's largest staged chunk, B={B} n1={n1} n2={n2}; launches by slices C, "
                   "I, D, E, F CLI, G, H2 reference, H2, J tracks".format(**k["shape"]),
         })
-    sift_launches = {name: (c["launches"][name] + rec["slice_i"]["launches"][name]
-                            + rec["slice_d"]["launches"][name]
-                            + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
-                            + rec["slice_f"]["cli"]["launches"][name]
-                            + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])
-                            + rec["slice_h"]["H2"]["reference"]["launches"][name]
-                            + rec["slice_h"]["H2"]["launches"][name]
-                            + rec["slice_j"]["tracks"]["launches"][name])
-                     for name in ("blur", "upsample2")}
+    def slice_launches(name):
+        return (c["launches"][name] + rec["slice_i"]["launches"][name]
+                + rec["slice_d"]["launches"][name]
+                + sum(rec["slice_e"][m]["launches"][name] for m in rec["slice_e"])
+                + rec["slice_f"]["cli"]["launches"][name]
+                + sum(rec["slice_g"][g]["launches"][name] for g in rec["slice_g"])
+                + rec["slice_h"]["H2"]["reference"]["launches"][name]
+                + rec["slice_h"]["H2"]["launches"][name]
+                + rec["slice_j"]["tracks"]["launches"][name])
+
+    sift_launches = {name: slice_launches(name) for name in ("blur", "upsample2")}
+    r = rec["rpc_triangulate"]
+    entries.append({
+        "name": "rpc_triangulate", "route": "cuda",
+        "source": "sat_bundleadjust_tpu_torch/csrc/rpc_triangulate.cu", "replaces": None,
+        "launches": slice_launches("rpc_triangulate"),
+        "max_abs_err": r["max_point_gap_m"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
+        "at": "rpc_ba1000_clean.robust's outlier pass, {duos} duos, {cameras} cameras (max_abs_err "
+              "in m); launches by slices C, I, D, E, F CLI, G, H2 reference, H2, J "
+              "tracks".format(**r["shape"]),
+    })
     for name, r in ((n, rec["sift_blur"][n]) for n in ("blur", "upsample2")):
         entries.append({
             "name": "sift_" + name, "route": "cuda",

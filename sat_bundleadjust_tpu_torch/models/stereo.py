@@ -57,15 +57,18 @@ def find_corresponding_point(rpc_a, rpc_b, x, y, z, device=None):
 
 def compute_height(rpc1, rpc2, x1, y1, x2, y2, device=None):
     """Altitude of matched pixel pairs by the batched triangulation
-    (`ops/triangulate.rpc_triangulation`). Returns (height, error)."""
-    from sat_bundleadjust_tpu_torch.ops.triangulate import rpc_triangulation
+    (`ops/triangulate.rpc_triangulate`, the two models stacked as cameras 0
+    and 1). Returns (height, error)."""
+    from sat_bundleadjust_tpu_torch.ops.triangulate import rpc_triangulate
 
     dev = resolve_device(device)
     x1, y1, x2, y2 = _on(dev, *[np.atleast_1d(np.asarray(v, np.float64)) for v in (x1, y1, x2, y2)])
-    pts3d, err = rpc_triangulation(_rpc_on(rpc1, dev), _rpc_on(rpc2, dev),
-                                   torch.stack([x1, y1], dim=-1), torch.stack([x2, y2], dim=-1))
+    rpcs = map_rpc(torch.stack, zip(_rpc_on(rpc1, dev), _rpc_on(rpc2, dev)))
+    cam = torch.zeros(x1.numel(), dtype=torch.int64, device=dev)
+    pts3d, err = rpc_triangulate(rpcs, cam, cam + 1, torch.stack([x1, y1], dim=-1).reshape(-1, 2),
+                                 torch.stack([x2, y2], dim=-1).reshape(-1, 2))
     _, _, alt = ellipsoid.ecef_to_latlon_arr(pts3d)
-    return alt.cpu().numpy(), err.cpu().numpy()
+    return alt.reshape(x1.shape).cpu().numpy(), err.reshape(x1.shape).cpu().numpy()
 
 
 def ground_control_points(rpc, x, y, w, h, m, M, n, device=None):

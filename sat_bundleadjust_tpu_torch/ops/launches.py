@@ -7,10 +7,10 @@ launches into a CUDA graph takes them off the counters at the capture
 which is where the kernels run.
 """
 
-from sat_bundleadjust_tpu_torch.ops import nn2_match, schur_matvec, sift
+from sat_bundleadjust_tpu_torch.ops import nn2_match, schur_matvec, sift, triangulate
 
 WRAPPERS = (schur_matvec.schur_wz, nn2_match.nn2_batched_i8, nn2_match.nn2_batched,
-            nn2_match.nn2_single, sift.blur, sift.upsample2)
+            nn2_match.nn2_single, sift.blur, sift.upsample2, triangulate.rpc_triangulate)
 
 
 def snapshot():

@@ -3,9 +3,11 @@
 Counterpart of `sat_bundleadjust_tpu/ops/triangulate.py`. Every (pair,
 track) observation duo across all stereo pairs is triangulated in one
 batch: with RPC cameras by the reference's altitude search (secant along
-the epipolar curve, hstep 1, stop at |lambda| < 1e-5, at most 24 steps),
-with converged duos frozen; with 3x4 matrix cameras (affine, perspective)
-by the linear (DLT) method, one batched 4x4 SVD. The duos come from the
+the epipolar curve, hstep 1, stop at |lambda| < 1e-5, at most 24 steps;
+`rpc_triangulate`: on the card one launch of csrc/rpc_triangulate.cu, on
+the CPU the plain version `rpc_triangulation`, with converged duos
+frozen); with 3x4 matrix cameras (affine, perspective) by the linear (DLT)
+method, one batched 4x4 SVD. The duos come from the
 observation table on the device, by a key lookup of each track's camera
 pairs in the pairs list (`observation_duos`), and the per-track mean is a
 segment sum whose order does not depend on the device (`segment_mean`).
@@ -13,6 +15,7 @@ segment sum whose order does not depend on the device (`segment_mean`).
 into that table.
 """
 
+import ctypes
 import itertools
 import os
 
@@ -21,14 +24,15 @@ import torch
 
 from sat_bundleadjust_tpu_torch import resolve_device
 from sat_bundleadjust_tpu_torch.models import ellipsoid
-from sat_bundleadjust_tpu_torch.models.rpc import (index_rpc, map_rpc, rpc_localization,
-                                                   rpc_projection, stack_rpcs)
+from sat_bundleadjust_tpu_torch.models.rpc import (NEWTON_ITERS, index_rpc, map_rpc,
+                                                   rpc_localization, rpc_projection, stack_rpcs)
+from sat_bundleadjust_tpu_torch.ops import _build
 from sat_bundleadjust_tpu_torch.utils.profiling import span
 
 RPCH_ITERS = 24
 RPCH_HSTEP = 1.0
 RPCH_LAMBDA_STOP = 1e-5
-CHUNK = 500_000  # duos per batch (SATBA_TRIANG_CHUNK): bounds the device temporaries
+CHUNK = 500_000  # duos a batch of the plain versions (SATBA_TRIANG_CHUNK): bounds their temporaries
 
 
 def count_read(reads):
@@ -69,7 +73,7 @@ def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b, reads=None):
     h = torch.zeros_like(xa)
     err = torch.zeros_like(xa)
     done = torch.zeros_like(xa, dtype=torch.bool)
-    with span("triangulate.rpc", duos=int(xa.numel())) as loop:
+    with span("triangulate.rpc", duos=int(xa.numel()), route="plain") as loop:
         for _ in range(RPCH_ITERS):
             count_read(reads)
             if host_read(done.all(), loop.attrs):
@@ -87,6 +91,88 @@ def rpc_triangulation(rpc_a, rpc_b, pts_a, pts_b, reads=None):
             done = done | (lam.abs() < RPCH_LAMBDA_STOP)
     lon, lat = rpc_localization(rpc_a, xa, ya, h)
     return ellipsoid.latlon_to_ecef_arr(lat, lon, h), err
+
+
+def _plain_chunk():
+    """Duos a batch of the plain versions (SATBA_TRIANG_CHUNK, default CHUNK)."""
+    return int(os.environ.get("SATBA_TRIANG_CHUNK", CHUNK))
+
+
+_SIGNATURES = {
+    "rpc_triangulate": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+                           ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]),
+}
+
+
+def _rpc_kernel(rpcs, cam_a, cam_b, pts_a, pts_b):
+    """One launch of csrc/rpc_triangulate.cu over the D duos on the card:
+    (5, D) float64, rows lon, lat, h, err and the secant steps taken (NaN
+    for a camera index outside the table). The duos go to the threads in
+    the order of cam_a (a warp's coefficient reads broadcast); each result
+    goes back to its duo's index. Raises on what the kernel does not take
+    and on the CUDA error of the launch."""
+    dev = pts_a.device
+    D = pts_a.shape[0]
+    for name, t in (("cam_a", cam_a), ("cam_b", cam_b)):
+        if t.device != dev or t.dtype not in (torch.int32, torch.int64) or t.shape != (D,):
+            raise ValueError("rpc_triangulate: {} must be ({},) integers on {}".format(
+                name, D, dev))
+    if pts_b.device != dev or pts_b.shape != (D, 2) or pts_a.shape != (D, 2) \
+            or pts_a.dtype != torch.float64 or pts_b.dtype != torch.float64:
+        raise ValueError("rpc_triangulate: pts_a and pts_b must be (D, 2) float64 on one device")
+    M = rpcs.line_num.shape[0]
+    for k, (name, f) in enumerate(zip(rpcs._fields, rpcs)):
+        if f.device != dev or f.dtype != torch.float64 or f.shape != ((M, 20) if k < 4 else (M,)):
+            raise ValueError("rpc_triangulate: the table's {} must be float64, {} on {}".format(
+                name, "(M, 20)" if k < 4 else "(M,)", dev))
+    out = torch.empty((5, D), dtype=torch.float64, device=dev)
+    if D == 0:
+        return out
+    table = torch.cat([*rpcs[:4], torch.stack(rpcs[4:], dim=1)], dim=1)  # (M, 90), field order
+    order = torch.argsort(cam_a)
+    cam_a, cam_b = (t.to(torch.int64).contiguous() for t in (cam_a, cam_b))
+    pts_a, pts_b = pts_a.contiguous(), pts_b.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.load("rpc_triangulate", _SIGNATURES).rpc_triangulate(
+        table.data_ptr(), M, order.data_ptr(), cam_a.data_ptr(), cam_b.data_ptr(),
+        pts_a.data_ptr(), pts_b.data_ptr(), D, RPCH_ITERS, NEWTON_ITERS, RPCH_HSTEP,
+        RPCH_LAMBDA_STOP, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("rpc_triangulate kernel launch failed: CUDA error {}".format(err))
+    rpc_triangulate.launches += 1
+    return out
+
+
+def rpc_triangulate(rpcs, cam_a, cam_b, pts_a, pts_b, reads=None):
+    """Triangulate D duos between the cameras of a stacked RPC table (an
+    RPCModel of float64 (M, 20) and (M,) fields, as stack_rpcs gives it):
+    duo k is pts_a[k] (x=col, y=row) in camera cam_a[k] matched with
+    pts_b[k] in camera cam_b[k] ((D,) int32 or int64, (D, 2) float64). Returns pts3d
+    (D, 3) ECEF and the residual distance in image b (D,) px.
+
+    CUDA tensors launch csrc/rpc_triangulate.cu once over all D duos or
+    raise, with no read of the device; each launch adds one to
+    rpc_triangulate.launches. CPU tensors take the plain version:
+    index_rpc and rpc_triangulation, _plain_chunk() duos at a time, its
+    host reads counted in reads. The `triangulate.rpc` span says which
+    (`route` "kernel" or "plain")."""
+    dev = pts_a.device
+    if dev.type == "cpu":
+        chunk = _plain_chunk()
+        parts = [rpc_triangulation(index_rpc(rpcs, cam_a[s:s + chunk]),
+                                   index_rpc(rpcs, cam_b[s:s + chunk]),
+                                   pts_a[s:s + chunk], pts_b[s:s + chunk], reads)
+                 for s in range(0, max(pts_a.shape[0], 1), chunk)]
+        return tuple(torch.cat(t) for t in zip(*parts))
+    if dev.type != "cuda":
+        raise ValueError("rpc_triangulate: unsupported device {}".format(dev))
+    with span("triangulate.rpc", duos=int(pts_a.shape[0]), route="kernel", host_reads=0):
+        lon, lat, h, err, _ = _rpc_kernel(rpcs, cam_a, cam_b, pts_a, pts_b)
+    return ellipsoid.latlon_to_ecef_arr(lat, lon, h), err
+
+
+rpc_triangulate.launches = 0
 
 
 def linear_triangulation(P1, P2, pts1, pts2):
@@ -206,18 +292,16 @@ def triangulate_table(pts_ind, cam_ind, pts2d, n_pts, n_cam, cameras, cam_model,
     else:
         mats = torch.as_tensor(np.stack([np.asarray(c, np.float64) for c in cameras]),
                                device=dev)
-    chunk = int(os.environ.get("SATBA_TRIANG_CHUNK", CHUNK))
-    pts3d = torch.empty((B, 3), dtype=torch.float64, device=dev)
+    # on the card rpc_triangulate is one launch; the plain versions go in chunks
+    chunk = B if cam_model == "rpc" and dev.type == "cuda" else _plain_chunk()
     with span("triangulate.loop", duos=B, chunks=-(-B // chunk)):
-        for s in range(0, B, chunk):
-            a_s, b_s = a[s:s + chunk], b[s:s + chunk]
-            cam_a, cam_b = cam_ind[a_s], cam_ind[b_s]
-            if cam_model == "rpc":
-                pts3d[s:s + chunk], _ = rpc_triangulation(
-                    index_rpc(rpcs, cam_a), index_rpc(rpcs, cam_b), pts2d[a_s], pts2d[b_s],
-                    reads)
-            else:
-                pts3d[s:s + chunk] = linear_triangulation(mats[cam_a], mats[cam_b],
+        if cam_model == "rpc":
+            pts3d, _ = rpc_triangulate(rpcs, cam_ind[a], cam_ind[b], pts2d[a], pts2d[b], reads)
+        else:
+            pts3d = torch.empty((B, 3), dtype=torch.float64, device=dev)
+            for s in range(0, B, chunk):
+                a_s, b_s = a[s:s + chunk], b[s:s + chunk]
+                pts3d[s:s + chunk] = linear_triangulation(mats[cam_ind[a_s]], mats[cam_ind[b_s]],
                                                           pts2d[a_s], pts2d[b_s])
     with span("triangulate.mean"):
         return segment_mean(pts3d, pts_ind[a], n_pts, reads), B

@@ -914,6 +914,222 @@ def test_outlier_pass_on_the_card_keeps_the_cpu_table(cuda):
     np.testing.assert_allclose(card.pts3d, host.pts3d, rtol=0, atol=1e-4)
 
 
+def ring_rpcs(n, curvature=0.0, seed=0, parallax=300.0):
+    """n RPCs (numpy fields) of utils/demo.make_synthetic_rpc on a ring of
+    views, `parallax` px per normalized altitude, view k at angle 2 pi k / n
+    (parallax 0: nadir views, no term in the altitude). curvature > 0 adds
+    seeded second- and third-order terms of that size to the numerators and
+    first- to third-order terms to the denominators, so that the secant
+    search takes 2 to 5 steps, depending on the duo."""
+    from sat_bundleadjust_tpu_torch.models.rpc import RPCModel
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for k in range(n):
+        d = demo.make_synthetic_rpc(view_dx=parallax * np.cos(2 * np.pi * k / n),
+                                    view_dy=parallax * np.sin(2 * np.pi * k / n))._asdict()
+        for f, first in (("line_num", 4), ("samp_num", 4), ("line_den", 1), ("samp_den", 1)):
+            d[f] = d[f] + curvature * rng.randn(20) * (np.arange(20) >= first)
+        out.append(RPCModel(**d))
+    return out
+
+
+def rpc_duos(rpcs, D, seed, spread=0.8, noise=0.3):
+    """D duos of the stacked table rpcs (on its device): ground points
+    drawn in the normalized box [-spread, spread]^2 and -400..500 m, each
+    seen by camera a and by a camera b a quarter to three quarters of the
+    ring away, its pixel in b moved by `noise` px. Returns (cam_a, cam_b,
+    pts_a, pts_b)."""
+    from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, rpc_projection
+
+    dev = rpcs.line_num.device
+    M = rpcs.line_num.shape[0]
+    rng = np.random.RandomState(seed)
+    ca = rng.randint(0, M, D)
+    cb = (ca + rng.randint(M // 4, 3 * M // 4 + 1, D)) % M
+    lon = float(rpcs.lon_offset[0]) + float(rpcs.lon_scale[0]) * rng.uniform(-spread, spread, D)
+    lat = float(rpcs.lat_offset[0]) + float(rpcs.lat_scale[0]) * rng.uniform(-spread, spread, D)
+    h = rng.uniform(-400.0, 500.0, D)
+    shift = noise * rng.randn(D, 2)
+    lon, lat, h, shift, ca, cb = (torch.as_tensor(v, device=dev)
+                                  for v in (lon, lat, h, shift, ca, cb))
+    pa = torch.stack(rpc_projection(index_rpc(rpcs, ca), lon, lat, h), dim=-1)
+    pb = torch.stack(rpc_projection(index_rpc(rpcs, cb), lon, lat, h), dim=-1) + shift
+    return ca, cb, pa, pb
+
+
+def per_duo_search(rpcs, cam_a, cam_b, pts_a, pts_b):
+    """csrc/rpc_triangulate.cu's schedule on the plain arithmetic
+    (ops/triangulate._pair_correspondence, models/rpc.rpc_localization, the
+    plain version's secant step): each duo stops on its own, once |lam| <
+    RPCH_LAMBDA_STOP after that step (the converged duos leave the batch),
+    then its final localization. (5, D) float64 as the kernel writes it:
+    lon, lat, h, err, the secant steps taken."""
+    from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, rpc_localization
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
+
+    D = pts_a.shape[0]
+    out = torch.zeros((5, D), dtype=torch.float64, device=pts_a.device)
+    live = torch.arange(D, device=pts_a.device)
+    for _ in range(ttri.RPCH_ITERS):
+        if live.numel() == 0:
+            break
+        ra, rb = index_rpc(rpcs, cam_a[live]), index_rpc(rpcs, cam_b[live])
+        xa, ya, xb, yb = pts_a[live, 0], pts_a[live, 1], pts_b[live, 0], pts_b[live, 1]
+        h = out[2, live]
+        px, py = ttri._pair_correspondence(ra, rb, xa, ya, h)
+        qx, qy = ttri._pair_correspondence(ra, rb, xa, ya, h + ttri.RPCH_HSTEP)
+        ax, ay = qx - px, qy - py
+        bx, by = xb - px, yb - py
+        a2 = ax * ax + ay * ay
+        lam = (ax * bx + ay * by) / torch.where(a2 == 0, torch.ones_like(a2), a2)
+        out[3, live] = torch.hypot(px + lam * ax - xb, py + lam * ay - yb)
+        out[2, live] = h + lam * ttri.RPCH_HSTEP
+        out[4, live] += 1
+        live = live[~(lam.abs() < ttri.RPCH_LAMBDA_STOP)]
+    out[0], out[1] = rpc_localization(index_rpc(rpcs, cam_a), pts_a[:, 0], pts_a[:, 1], out[2])
+    return out
+
+
+def _ecef(out):
+    from sat_bundleadjust_tpu_torch.models import ellipsoid
+
+    return ellipsoid.latlon_to_ecef_arr(out[1], out[0], out[2])
+
+
+def _kernel_against(got, want, label):
+    """The gaps between the kernel's (5, D) and a plain version's: the
+    largest point distance (m), |h| and err gaps, the share of duos whose
+    secant steps differ; printed (pytest -s) and returned."""
+    want = want.to(got.device)
+    gap = {"point_m": float((_ecef(got) - _ecef(want)).norm(dim=1).max()),
+           "h_m": float((got[2] - want[2]).abs().max()),
+           "err_px": float((got[3] - want[3]).abs().max()),
+           "steps_differ": float((got[4] != want[4]).double().mean())}
+    print("rpc_triangulate against {}: {}".format(label, gap))
+    return gap
+
+
+@pytest.mark.cuda
+def test_rpc_triangulate_kernel_matches_plain(cuda):
+    """csrc/rpc_triangulate.cu on 60 000 duos of 80 demo RPCs on one ring
+    (every other one curved; the linear ones as in the robust BA cell), views
+    a quarter to three quarters of the ring apart (2-5 secant steps, every
+    search within the scene's altitudes), against the plain
+    arithmetic with the kernel's per-duo stop on the card and on the CPU
+    (per_duo_search, equal to rpc_triangulation's frozen mask: the CPU
+    test test_per_duo_stop_gives_the_frozen_mask_loops_h), and the wrapper
+    against rpc_triangulation on the card. Tolerances: a point within 1e-4
+    m (a stop decision that flips where |lam| lies within rounding of 1e-5
+    moves h by less than 1e-5 m; otherwise the gap is rounding, fmas and
+    the sums' order), err within 1e-6 px, the steps equal for >= 99.9% of
+    the duos. Measured on an H100 80GB HBM3: points within 3.5e-9 m, h
+    within 1.3e-9 m, err within 7.7e-10 px, the steps equal for every duo."""
+    from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, stack_rpcs
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
+
+    curved, linear = ring_rpcs(80, curvature=6e-3), ring_rpcs(80)
+    views = [curved[k] if k % 2 else linear[k] for k in range(80)]
+    rpcs = stack_rpcs(views, cuda)
+    duos = rpc_duos(rpcs, 60_000, seed=0)
+    launches = ttri.rpc_triangulate.launches
+    got = ttri._rpc_kernel(rpcs, *duos)
+    torch.cuda.synchronize()
+    assert ttri.rpc_triangulate.launches == launches + 1
+    assert set(got[4].unique().tolist()) >= {2.0, 3.0, 4.0}
+    host = per_duo_search(stack_rpcs(views, "cpu"), *(t.cpu() for t in duos))
+    assert float(host[2].abs().max()) < 600.0  # the ground lies at -400..500 m
+    for label, want in (("the plain arithmetic on the card", per_duo_search(rpcs, *duos)),
+                        ("the plain arithmetic on the CPU", host)):
+        gap = _kernel_against(got, want, label)
+        assert gap["point_m"] <= 1e-4 and gap["h_m"] <= 1e-4, gap
+        assert gap["err_px"] <= 1e-6 and gap["steps_differ"] <= 1e-3, gap
+    ca, cb, pa, pb = duos
+    pts3d, err = ttri.rpc_triangulate(rpcs, ca, cb, pa, pb)
+    pts_p, err_p = ttri.rpc_triangulation(index_rpc(rpcs, ca), index_rpc(rpcs, cb), pa, pb)
+    assert float((pts3d - pts_p).norm(dim=1).max()) <= 1e-4
+    assert float((err - err_p).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_rpc_triangulate_kernel_on_degenerate_duos(cuda):
+    """Duos whose search is degenerate, against the plain arithmetic on the
+    CPU: the same nadir camera twice and two nadir cameras (no altitude
+    term: p = q bit for bit, a2 == 0, so lam = 0: one step, h = 0); points
+    three to five image half-sizes outside the image of linear RPCs, where
+    the rational model is still defined; a camera index outside the table
+    (the kernel's NaN row; the plain version would raise). Tolerances as in
+    test_rpc_triangulate_kernel_matches_plain; measured on an H100 80GB
+    HBM3: nadir views h and steps equal, err within 1.6e-13 px; outside
+    the image points within 2.9e-9 m, err within 2.1e-10 px."""
+    from sat_bundleadjust_tpu_torch.models.rpc import stack_rpcs
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
+
+    def both(rpc_list, duos):
+        card = ttri._rpc_kernel(stack_rpcs(rpc_list, cuda), *(t.to(cuda) for t in duos))
+        return card, per_duo_search(stack_rpcs(rpc_list, "cpu"), *duos)
+
+    nadir = ring_rpcs(4, parallax=0.0)
+    rng = np.random.RandomState(0)
+    pa = torch.as_tensor(rng.uniform(0, 1000, (64, 2)))
+    pb = pa + torch.as_tensor(rng.randn(64, 2))
+    ca = torch.as_tensor(rng.randint(0, 4, 64))
+    for cb in (ca, (ca + 1) % 4):
+        card, cpu = both(nadir, (ca, cb, pa, pb))
+        assert torch.equal(card[2].cpu(), torch.zeros(64, dtype=torch.float64))
+        assert torch.equal(card[4].cpu(), torch.ones(64, dtype=torch.float64))
+        assert torch.equal(cpu[2], card[2].cpu()) and torch.equal(cpu[4], card[4].cpu())
+        gap = _kernel_against(card, cpu, "the CPU, nadir views")
+        assert gap["point_m"] <= 1e-4 and gap["err_px"] <= 1e-6, gap
+
+    linear = ring_rpcs(8)
+    rpcs = stack_rpcs(linear, "cpu")
+    ca, cb, pa, pb = rpc_duos(rpcs, 256, seed=1, spread=0.0, noise=0.0)
+    half = torch.tensor([1600.0, 675.0], dtype=torch.float64)
+    out = torch.as_tensor(rng.uniform(3, 5, (256, 2)) * rng.choice([-1, 1], (256, 2)))
+    card, cpu = both(linear, (ca, cb, pa + out * half, pb + out * half))
+    assert bool(torch.isfinite(card).all())
+    gap = _kernel_against(card, cpu, "the CPU, points outside the image")
+    assert gap["point_m"] <= 1e-4 and gap["err_px"] <= 1e-6 and gap["steps_differ"] == 0, gap
+
+    bad = ttri._rpc_kernel(stack_rpcs(linear, cuda), torch.tensor([0, 8, -1], device=cuda),
+                           torch.tensor([1, 2, 3], device=cuda),
+                           torch.zeros((3, 2), dtype=torch.float64, device=cuda),
+                           torch.zeros((3, 2), dtype=torch.float64, device=cuda))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(bad[:, 0]).all()) and bool(torch.isnan(bad[:, 1:]).all())
+
+
+@pytest.mark.cuda
+def test_triangulate_table_on_the_card_is_one_launch(cuda):
+    """triangulate_table on the card: one kernel launch over all the duos,
+    its `triangulate.rpc` span on the route "kernel" with no read of the
+    device, the loop in one chunk, the points within 1e-4 m of the CPU's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
+    from sat_bundleadjust_tpu_torch.utils import profiling
+
+    scene = demo.make_scene_arrays(n_cam=12, n_pts=3000, obs_per_pt=4, seed=2, device="cpu")
+    pairs = [(i, j) for i in range(12) for j in range(i + 1, 12)]
+    order = np.lexsort((scene["cam_ind"], scene["pts_ind"]))  # the table sorted by point
+    table = [torch.as_tensor(scene[k][order]) for k in ("pts_ind", "cam_ind", "pts2d")]
+    args = (3000, 12, scene["rpc_list"], "rpc", pairs)
+    host, n_duos = ttri.triangulate_table(*table, *args)
+    launches = ttri.rpc_triangulate.launches
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        card, n_card = ttri.triangulate_table(*(t.to(cuda) for t in table), *args)
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    profiling.reset()
+    assert ttri.rpc_triangulate.launches == launches + 1 and n_card == n_duos > 0
+    assert [s[5] for s in spans if s[2] == "triangulate.rpc"] == [
+        {"duos": n_duos, "route": "kernel", "host_reads": 0}]
+    assert [s[5]["chunks"] for s in spans if s[2] == "triangulate.loop"] == [1]
+    np.testing.assert_allclose(card.cpu().numpy(), host.numpy(), rtol=0, atol=1e-4)
+
+
 def _failed_capture():
     """A child process's check: a solve whose Jacobians read the device from
     the host, which a capture refuses, raises. (An aborted capture leaves

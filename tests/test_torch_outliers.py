@@ -173,6 +173,47 @@ def test_camera_thresholds_match_the_numpy_rule(dtype):
         np.testing.assert_array_equal(got.numpy(), np.array(want))
 
 
+def test_per_duo_stop_gives_the_frozen_mask_loops_h():
+    """The RPC kernel's schedule, each duo stopping on its own once |lam| <
+    1e-5 after that step (test_torch_cuda.per_duo_search, on the plain
+    arithmetic), gives rpc_triangulation's points and residuals bit for bit
+    on a batch of curved RPCs whose duos converge after 2 to 5 steps."""
+    from test_torch_cuda import per_duo_search, ring_rpcs, rpc_duos
+
+    from sat_bundleadjust_tpu_torch.models import ellipsoid
+    from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, stack_rpcs
+
+    rpcs = stack_rpcs(ring_rpcs(24, curvature=6e-3, seed=3), "cpu")
+    ca, cb, pa, pb = rpc_duos(rpcs, 2000, seed=4)
+    out = per_duo_search(rpcs, ca, cb, pa, pb)
+    assert len(out[4].unique()) >= 3
+    pts3d, err = ttri.rpc_triangulation(index_rpc(rpcs, ca), index_rpc(rpcs, cb), pa, pb)
+    assert torch.equal(ellipsoid.latlon_to_ecef_arr(out[1], out[0], out[2]), pts3d)
+    assert torch.equal(out[3], err)
+
+
+def test_rpc_triangulate_takes_the_plain_version_on_the_cpu_only(monkeypatch):
+    """rpc_triangulate on CPU tensors: the plain version in chunks of
+    SATBA_TRIANG_CHUNK, equal to one rpc_triangulation over the batch, and
+    no kernel launch; on another device (not CUDA) it raises."""
+    from test_torch_cuda import ring_rpcs, rpc_duos
+
+    from sat_bundleadjust_tpu_torch.models.rpc import index_rpc, stack_rpcs
+
+    rpcs = stack_rpcs(ring_rpcs(8, curvature=2e-3), "cpu")
+    ca, cb, pa, pb = rpc_duos(rpcs, 300, seed=5)
+    monkeypatch.setenv("SATBA_TRIANG_CHUNK", "128")
+    launches = ttri.rpc_triangulate.launches
+    pts3d, err = ttri.rpc_triangulate(rpcs, ca, cb, pa, pb)
+    want = ttri.rpc_triangulation(index_rpc(rpcs, ca), index_rpc(rpcs, cb), pa, pb)
+    assert torch.equal(pts3d, want[0]) and torch.equal(err, want[1])
+    assert ttri.rpc_triangulate.launches == launches
+    empty = ttri.rpc_triangulate(rpcs, ca[:0], cb[:0], pa[:0], pb[:0])
+    assert empty[0].shape == (0, 3) and empty[1].shape == (0,)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttri.rpc_triangulate(rpcs, *(t.to("meta") for t in (ca, cb, pa, pb)))
+
+
 def test_table_pass_at_1000_cameras_holds_no_dense_array(monkeypatch):
     """At 1000 cameras the pass on a table-built problem allocates no
     cameras x tracks array (numpy's allocations traced; the duos' RPC
@@ -184,7 +225,8 @@ def test_table_pass_at_1000_cameras_holds_no_dense_array(monkeypatch):
     err = synthetic_errors(p.n_obs, 2, share=0.02)
 
     monkeypatch.setattr(ttri, "rpc_triangulation", lambda rpc_a, rpc_b, pts_a, pts_b, reads: (
-        torch.zeros(pts_a.shape[:-1] + (3,), dtype=torch.float64), None))
+        torch.zeros(pts_a.shape[:-1] + (3,), dtype=torch.float64),
+        torch.zeros(pts_a.shape[:-1], dtype=torch.float64)))
     tracemalloc.start()
     try:
         p2 = tout.rm_outliers(err, p, device="cpu")

@@ -186,6 +186,34 @@ def test_the_front_end_and_refit_spans_carry_their_counts(recorder):
     assert sum(s[5]["host_syncs"] for s in irls) == refit["host_syncs"] - refit["rounds"] > 0
 
 
+def test_the_table_triangulation_on_the_cpu_takes_the_plain_route(recorder, monkeypatch):
+    """triangulate_table on the CPU under the profiler: the plain version in
+    SATBA_TRIANG_CHUNK chunks, one `triangulate.rpc` span a chunk on the
+    route "plain" with its reads of the device, no kernel launch; the
+    launch counters list the RPC triangulation's wrapper."""
+    from sat_bundleadjust_tpu_torch.ops import launches
+    from sat_bundleadjust_tpu_torch.ops import triangulate as ttri
+    from sat_bundleadjust_tpu_torch.utils import demo
+
+    assert ttri.rpc_triangulate in launches.WRAPPERS
+    scene = demo.make_scene_arrays(n_cam=4, n_pts=60, obs_per_pt=3, seed=1, device="cpu")
+    order = np.lexsort((scene["cam_ind"], scene["pts_ind"]))
+    table = [torch.as_tensor(scene[k][order]) for k in ("pts_ind", "cam_ind", "pts2d")]
+    monkeypatch.setenv("SATBA_TRIANG_CHUNK", "50")
+    before = launches.snapshot()
+    reads = {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        _, n_duos = ttri.triangulate_table(*table, 60, 4, scene["rpc_list"], "rpc",
+                                           [(0, 1), (1, 2), (2, 3)], reads=reads)
+    spans = profiling.spans()
+    assert launches.snapshot() == before and n_duos > 50
+    loop = [s for s in spans if s[2] == "triangulate.loop"]
+    tri = [s for s in spans if s[2] == "triangulate.rpc"]
+    assert len(loop) == 1 and loop[0][5]["chunks"] == len(tri) == -(-n_duos // 50)
+    assert all(s[5]["route"] == "plain" and s[5]["host_reads"] >= 1 for s in tri)
+    assert sum(s[5]["duos"] for s in tri) == n_duos and reads["host_reads"] > len(tri)
+
+
 def test_the_command_line_traces_its_run_with_the_spans(recorder, tmp_path, monkeypatch):
     """With SATBA_PROFILE_DIR set, `cli.main` writes one Chrome trace of the
     run, which holds its spans as the profiler's ranges (the scene stubbed:
