@@ -17,8 +17,9 @@ rounds solve over the ranks of the mesh (parallel/dist_solver.py), the
 tracks front end splits its images and pairs over the processes, and rank
 0 alone writes the outputs, behind barriers (parallel/multihost.py).
 `timing` collects the seconds of every step of the last run, `ft_timing`
-those of the tracks front end, `ba_rounds` the counters of each LM solve
-and `refit_stats` the refit's.
+those of the tracks front end, `ft_counts` its images and pairs read from
+the npy caches or computed, `ba_rounds` the counters of each LM solve and
+`refit_stats` the refit's.
 """
 
 import copy
@@ -132,6 +133,7 @@ class BundleAdjustmentPipeline:
         self.corrected_pts3d = None
         self.global_transform = None
         self.ft_timing = {}
+        self.ft_counts = {}
         self.ba_rounds = []
         self.refit_stats = None
 
@@ -222,6 +224,7 @@ class BundleAdjustmentPipeline:
                                                 device=self.device)
             feature_tracks, self.feature_tracks_running_time = ft_pipeline.build_feature_tracks()
             self.ft_timing = dict(ft_pipeline.timing)
+            self.ft_counts = dict(ft_pipeline.counts)
 
         new_camera_indices = np.arange(self.n_adj, len(self.images))
         fatal_error, err_msg, disconnected1 = ft_build.check_pairs(
@@ -253,9 +256,11 @@ class BundleAdjustmentPipeline:
         n_pts_opt = self.C.shape[1] - self.n_pts_fix
         if self.n_pts_fix > 0:
             flush_print("Initializing {} fixed 3d point coords...".format(self.n_pts_fix))
-            C_fixed = self.C[: self.n_adj * 2, : self.n_pts_fix]
-            self.pts3d[: self.n_pts_fix, :] = init_pts3d(
-                C_fixed, self.cameras, self.cam_model, self.pairs_to_triangulate, device=self.device)
+            with span("pipeline.pts3d_fix", tracks=self.n_pts_fix):
+                C_fixed = self.C[: self.n_adj * 2, : self.n_pts_fix]
+                self.pts3d[: self.n_pts_fix, :] = init_pts3d(
+                    C_fixed, self.cameras, self.cam_model, self.pairs_to_triangulate,
+                    device=self.device)
         flush_print("Initializing {} 3d point coords to optimize...".format(n_pts_opt))
         with span("pipeline.pts3d_opt") as wall:
             C_opt = self.C[:, -n_pts_opt:]

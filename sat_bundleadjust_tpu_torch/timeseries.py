@@ -304,31 +304,41 @@ class Scene:
         (frozen); pts3d_adj/<date id>_pts3d_adj.ply for each date. fix_ref_cam
         holds for the first date only (or every date with n_dates 0).
         `date_stats` keeps each date's wall, tracks, iterations, n_adj, the
-        reprojection errors through the initial and the written RPCs, and
-        its pipeline's stage walls and LM counters."""
+        reprojection errors through the initial and the written RPCs, its
+        pipeline's stage walls, LM counters and cache counts (`ft_counts`),
+        and the date's whole wall (`date_s`, its `ts.date` span: the input
+        data, the pipeline, the .ply copy and the reprojection errors)."""
         ba_dir = os.path.join(self.dst_dir, self.ba_method)
         os.makedirs(ba_dir, exist_ok=True)
         self.tracks_config["FT_predefined_pairs"] = []
 
         stats = {"time": [], "time_FT": [], "tracks": [], "init_e": [], "ba_e": [], "iters": [],
-                 "n_adj": [], "reproj_after": [], "timing": [], "ft_timing": [], "ba_rounds": []}
+                 "n_adj": [], "reproj_after": [], "timing": [], "ft_timing": [], "ba_rounds": [],
+                 "ft_counts": [], "date_s": []}
         fix_ref_cam_initial = self.fix_ref_cam
         for idx, t_idx in enumerate(self.selected_timeline_indices):
-            self.set_ba_input_data([t_idx], ba_dir, ba_dir, self.n_dates)
-            self.fix_ref_cam = fix_ref_cam_initial and (idx == 0 or self.n_dates == 0)
-            n_adj = self.n_adj
-            running_time, time_FT, n_tracks, ba_e, _ = self.bundle_adjust()
-            if multihost.is_main_process():
-                pts_out = "{}/pts3d_adj/{}_pts3d_adj.ply".format(ba_dir, self.timeline[t_idx]["id"])
-                os.makedirs(os.path.dirname(pts_out), exist_ok=True)
-                shutil.copyfile(ba_dir + "/pts3d_adj.ply", pts_out)
+            with span("ts.date", date=idx, date_id=self.timeline[t_idx]["id"]) as date:
+                self.set_ba_input_data([t_idx], ba_dir, ba_dir, self.n_dates)
+                self.fix_ref_cam = fix_ref_cam_initial and (idx == 0 or self.n_dates == 0)
+                n_adj = self.n_adj
+                running_time, time_FT, n_tracks, ba_e, _ = self.bundle_adjust()
+                if multihost.is_main_process():
+                    pts_out = "{}/pts3d_adj/{}_pts3d_adj.ply".format(ba_dir,
+                                                                     self.timeline[t_idx]["id"])
+                    os.makedirs(os.path.dirname(pts_out), exist_ok=True)
+                    shutil.copyfile(ba_dir + "/pts3d_adj.ply", pts_out)
 
-            init_e, after_e = self.compute_reprojection_error_before_and_after_bundle_adjust()
-            pipe = self.ba_pipeline
+                init_e, after_e = self.compute_reprojection_error_before_and_after_bundle_adjust()
+                pipe = self.ba_pipeline
+                date.attrs.update(n_adj=n_adj, n_new=len(self.images_new),
+                                  cams_fixed=pipe.ba_params.n_cam_fix, pts_fixed=pipe.n_pts_fix,
+                                  **pipe.ft_counts)
             for k, v in zip(["time", "time_FT", "tracks", "init_e", "ba_e", "iters", "n_adj",
-                             "reproj_after", "timing", "ft_timing", "ba_rounds"],
+                             "reproj_after", "timing", "ft_timing", "ba_rounds", "ft_counts",
+                             "date_s"],
                             [running_time, time_FT, n_tracks, init_e, ba_e, pipe.ba_iters, n_adj,
-                             after_e, dict(pipe.timing), dict(pipe.ft_timing), pipe.ba_rounds]):
+                             after_e, dict(pipe.timing), dict(pipe.ft_timing), pipe.ba_rounds,
+                             dict(pipe.ft_counts), date.seconds]):
                 stats[k].append(v)
             flush_print("({}/{}) {} adjusted in {:.2f} seconds, {} ({:.3f}, {:.3f})".format(
                 idx + 1, len(self.selected_timeline_indices), self.timeline[t_idx]["datetime"],

@@ -86,7 +86,7 @@ def check_backend(backend):
 
 
 def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
-                                   tracks_config=None, device=None, timing=None):
+                                   tracks_config=None, device=None, timing=None, counts=None):
     """Detect keypoints over an image sequence, with the features/ npy cache.
 
     geotiff_paths: image paths (or arrays already in memory, see
@@ -95,7 +95,9 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
     arrays (unpadded when tracks_config is None). `timing` (a dict), if
     given, receives detector_s: the wall of reading and detecting the
     uncached images (equalization and cv2 for opencv, the SIFT batches for
-    tpu), without the caches."""
+    tpu), without the caches. `counts` (a dict), if given, adds the
+    images read from the features/ cache (features_cached) and the others
+    (features_detected, by this process or another)."""
     from sat_bundleadjust_tpu_torch.ops.sift import detect_sift_batch
     from sat_bundleadjust_tpu_torch.utils.config import init_feature_tracks_config
 
@@ -117,12 +119,19 @@ def detect_features_image_sequence(geotiff_paths, mask_paths=None, offsets=None,
     resolved = [None] * n
     pending = []  # (i, path, offset, mask) still to detect
     remote = []  # uncached images another process detects
-    for i, path in enumerate(geotiff_paths):
+    with span("detection.cache_read"):
         if not config["FT_reset"] and "in_dir" in config:
-            npy_in = os.path.join(config["in_dir"], "features/{}.npy".format(get_id(path)))
-            if os.path.exists(npy_in):
-                resolved[i] = np.load(npy_in)
-                continue
+            for i, path in enumerate(geotiff_paths):
+                npy_in = os.path.join(config["in_dir"], "features/{}.npy".format(get_id(path)))
+                if os.path.exists(npy_in):
+                    resolved[i] = np.load(npy_in)
+    n_cached = sum(f is not None for f in resolved)
+    if counts is not None:
+        counts["features_cached"] = counts.get("features_cached", 0) + n_cached
+        counts["features_detected"] = counts.get("features_detected", 0) + n - n_cached
+    for i, path in enumerate(geotiff_paths):
+        if resolved[i] is not None:
+            continue
         if owned is not None and i not in owned:
             remote.append(i)
             continue

@@ -296,7 +296,7 @@ def _finalize_pairs_from_nn_batched(items, nn_results, tracks_config, timing=Non
 
 
 def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_config,
-                       F=None, device=None, timing=None):
+                       F=None, device=None, timing=None, counts=None):
     """Match all pairs; returns (K, 4) int64 rows (kp_i, kp_j, im_i, im_j).
 
     Matches are cached per pair id in <in_dir>/pairwise_matches/<idA>_<idB>.npy
@@ -305,7 +305,8 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
     (frames to the device), nn_s (the 2-NN of all pairs, operand assembly
     and drain included; on the staged path split into nn_enqueue_s and
     nn_drain_s), finalize_s (RANSAC and UTM, split into collect_s, ransac_s
-    and utm_s) and assemble_s."""
+    and utm_s) and assemble_s. `counts` (a dict), if given, adds the pairs
+    read from the cache (pairs_cached) and the others (pairs_matched)."""
     dev = resolve_device(device)
     timing = {} if timing is None else timing
     F = [None] * len(pairs_to_match) if F is None else F
@@ -334,20 +335,27 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
         to_match = []  # (idx, fi, fj, idx_i, idx_j, utm_i, utm_j)
         to_match_frames = []
         remote = []  # uncached pairs another process matches
+        with span("matching.cache_read"):
+            for idx, (i, j) in enumerate(pairs_to_match):
+                npy_id1 = "{}_{}.npy".format(fid(features[i]), fid(features[j]))
+                npy_id2 = "{}_{}.npy".format(fid(features[j]), fid(features[i]))
+                npy_path1 = os.path.join(in_dir, "pairwise_matches", npy_id1)
+                npy_path2 = os.path.join(in_dir, "pairwise_matches", npy_id2)
+                npy_ids[idx] = npy_id1
+                if in_dir and os.path.exists(npy_path1) and not tracks_config["FT_reset"]:
+                    resolved[idx] = np.load(npy_path1)
+                    from_cache[idx] = npy_path1
+                elif in_dir and os.path.exists(npy_path2) and not tracks_config["FT_reset"]:
+                    resolved[idx] = np.load(npy_path2)[:, ::-1]
+                    npy_ids[idx] = npy_id2
+                    from_cache[idx] = npy_path2
+        n_cached = sum(bool(c) for c in from_cache)
+        if counts is not None:
+            counts["pairs_cached"] = counts.get("pairs_cached", 0) + n_cached
+            counts["pairs_matched"] = (counts.get("pairs_matched", 0) + len(pairs_to_match)
+                                       - n_cached)
         for idx, (i, j) in enumerate(pairs_to_match):
-            npy_id1 = "{}_{}.npy".format(fid(features[i]), fid(features[j]))
-            npy_id2 = "{}_{}.npy".format(fid(features[j]), fid(features[i]))
-            npy_path1 = os.path.join(in_dir, "pairwise_matches", npy_id1)
-            npy_path2 = os.path.join(in_dir, "pairwise_matches", npy_id2)
-            npy_ids[idx] = npy_id1
-            if in_dir and os.path.exists(npy_path1) and not tracks_config["FT_reset"]:
-                resolved[idx] = np.load(npy_path1)
-                from_cache[idx] = npy_path1
-                continue
-            if in_dir and os.path.exists(npy_path2) and not tracks_config["FT_reset"]:
-                resolved[idx] = np.load(npy_path2)[:, ::-1]
-                npy_ids[idx] = npy_id2
-                from_cache[idx] = npy_path2
+            if from_cache[idx]:
                 continue
             if owned is not None and idx not in owned:
                 remote.append(idx)

@@ -37,7 +37,9 @@ class FeatureTracksPipeline:
     def __init__(self, input_dir, output_dir, local_data, tracks_config=None, device=None):
         """local_data holds "images" (SatelliteImage list, with footprints
         and camera centers set), "n_adj" and "aoi". `timing` collects the
-        seconds of every stage of the last build_feature_tracks."""
+        seconds of every stage of the last build_feature_tracks, `counts`
+        its images and pairs read from the npy caches or computed
+        (features_cached, features_detected, pairs_cached, pairs_matched)."""
         self.device = resolve_device(device)
         self.input_dir = input_dir
         self.output_dir = output_dir
@@ -69,6 +71,8 @@ class FeatureTracksPipeline:
                     np.save(mask_path, mask[y0:y0 + h, x0:x0 + w])
                 self.mask_paths.append(mask_path)
         self.timing = {}
+        self.counts = dict.fromkeys(
+            ("features_cached", "features_detected", "pairs_cached", "pairs_matched"), 0)
 
     def run_feature_detection(self):
         """Detect keypoints in every image. In one process with FT_save
@@ -81,7 +85,7 @@ class FeatureTracksPipeline:
         cfg = dict(self.config, FT_save=not handoff)
         feats_mem = ft_detection.detect_features_image_sequence(
             image_paths, self.mask_paths, offsets, cfg, device=self.device,
-            timing=self.timing)
+            timing=self.timing, counts=self.counts)
 
         if handoff:
             self.features = list(feats_mem)
@@ -140,7 +144,7 @@ class FeatureTracksPipeline:
                 F = ft_matching.init_F_pairs_batched(self.pairs_to_match, self.images)
         self.pairwise_matches = ft_matching.match_stereo_pairs(
             self.pairs_to_match, self.features, self.footprints, self.features_utm,
-            self.config, F, device=self.device, timing=self.timing)
+            self.config, F, device=self.device, timing=self.timing, counts=self.counts)
         print("Found {} new pairwise matches".format(self.pairwise_matches.shape[0]))
 
     def get_feature_tracks(self):

@@ -244,3 +244,61 @@ def test_the_command_line_traces_its_run_with_the_spans(recorder, tmp_path, monk
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"cli.main", "scene.stub", "aten::mm"} <= names
     assert [s[2] for s in profiling.spans()] == ["scene.stub", "cli.main"]
+
+
+def test_a_sequential_series_keeps_one_date_span_a_date(recorder, tmp_path):
+    """A series of 2 dates of 2 views in `ba_sequential` under the profiler:
+    one `ts.date` span a date with its attributes; the cache counters add
+    up to the date's views and pairs, the second date reads the first's
+    keypoints and pair from the caches, inside its span."""
+    from PIL import Image
+
+    from portbench.scenes import generate, series
+    from portbench.scenes import rpc as rpcm
+    from sat_bundleadjust_tpu_torch.timeseries import Scene
+
+    change = {"weight": 0.1, "texture_seed": 1, "gain": [1.0, 0.9], "offset": [0.0, 12.0]}
+    frames, rpcs = series.render_series(2, 2, 200, 200, 50.0, 256, 4, 0, change, "cpu")
+    names = series.names(2, 2, 7, 90)
+    bias = generate.biases(4, 3.0, 5)
+    img = tmp_path / "images"
+    img.mkdir()
+    for d in range(2):
+        for k in range(2):
+            Image.fromarray(frames[d][k]).save(str(img / (names[d][k] + ".tif")))
+            b = bias[2 * d + k]
+            rpcm.write_file(dict(rpcs[d][k], col_offset=rpcs[d][k]["col_offset"] + b[0],
+                                 row_offset=rpcs[d][k]["row_offset"] + b[1]),
+                            str(img / (names[d][k] + ".rpc")))
+    cfg = {"geotiff_dir": str(img), "rpc_dir": str(img), "rpc_src": "txt", "cam_model": "rpc",
+           "output_dir": str(tmp_path / "out"), "ba_method": "ba_sequential", "n_dates": 1,
+           "FT_kp_max": 1500, "FT_save": True, "save_figures": False}
+    with profile(activities=[ProfilerActivity.CPU]):
+        scene = Scene(cfg, device="cpu")
+        scene.run_bundle_adjustment_for_RPC_refinement()
+    spans = profiling.spans()
+    dates = sorted((s for s in spans if s[2] == "ts.date"), key=lambda s: s[3])
+    assert [s[5]["date"] for s in dates] == [0, 1]
+    assert [s[5]["date_id"] for s in dates] == [n[0][:15] for n in names]
+    first, second = (s[5] for s in dates)
+    assert (first["n_adj"], first["n_new"], first["cams_fixed"]) == (0, 2, 0)
+    assert (second["n_adj"], second["n_new"], second["cams_fixed"]) == (2, 2, 2)
+    pairs = np.load(str(tmp_path / "out" / "ba_sequential" / "matches" / "pairs_matching.npy"))
+    for attrs, views in ((first, 2), (second, 4)):
+        assert attrs["features_cached"] + attrs["features_detected"] == views
+        assert attrs["pairs_cached"] + attrs["pairs_matched"] <= views * (views - 1) // 2
+    assert second["pairs_cached"] + second["pairs_matched"] == len(pairs)
+    assert (first["features_cached"], first["pairs_cached"]) == (0, 0)
+    assert (second["features_cached"], second["pairs_cached"]) == (2, 1)
+    assert scene.date_stats["ft_counts"] == [
+        {k: a[k] for k in ("features_cached", "features_detected", "pairs_cached",
+                           "pairs_matched")} for a in (first, second)]
+
+    def inside(name):
+        return [s for s in spans if s[2] == name and dates[1][3] <= s[3] and s[4] <= dates[1][4]]
+
+    assert len(inside("detection.cache_read")) == len(inside("matching.cache_read")) == 1
+    fixed = inside("pipeline.pts3d_fix")
+    assert [s[5]["tracks"] for s in fixed] == ([second["pts_fixed"]] if second["pts_fixed"] else [])
+    assert all(s[4] - s[3] > 0 for s in dates)
+    assert scene.date_stats["date_s"][1] >= scene.date_stats["time"][1]
