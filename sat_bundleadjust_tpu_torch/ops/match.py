@@ -208,36 +208,61 @@ def accept_from_packed(packed, pair_feats, vi, method, rel_thr, abs_thr):
     return out
 
 
-def stage_frames_for_matching(frames, device=None):
+def stage_frames_for_matching(frames, device=None, counts=None):
     """Stage each frame's keypoints on the device once, for
     match_pairs_2nn_staged. frames: list of (N, 132) arrays (NaN rows
     allowed).
 
+    Each frame's rows up to its last keypoint (the last row whose column 0
+    is not NaN) go to the device in one copy, in the frame's dtype; the
+    device replaces NaN by 0, tests the descriptors and packs the tables.
+    The rows past a frame's last keypoint are padding (descriptor -128,
+    point (0, 0, 1)); n_f leaves at least one below it in every frame that
+    has such rows, so that staged_chunk_operands can send every index past
+    the table to row n_f - 1. The device is read once a call (the integer
+    test of all the frames).
+
     Returns None when a frame's descriptors are not exact integers in 0..255
     (the caller then packs f32 pairs on the host); else a dict with desc
     (n_frames, n_f, 128) int8 (descriptor - 128), hpts (n_frames, n_f, 3)
-    f32 homogeneous points, and n_f (rows, a multiple of 512)."""
+    f32 homogeneous points, and n_f (rows, a multiple of 512). counts, if
+    given (a span's attributes), receives rows_given, rows_staged,
+    h2d_bytes and route ("device" or "declined")."""
     dev = resolve_device(device)
     n_frames = len(frames)
     if n_frames == 0:
         return None
-    n_f = -(-max(max(int(np.asarray(f).shape[0]) for f in frames), 1) // 512) * 512
-    desc = np.zeros((n_frames, n_f, 128), np.int8)
-    hpts = np.zeros((n_frames, n_f, 3), np.float32)
+    frames = [np.asarray(f) for f in frames]
+    rows = []
+    for f in frames:
+        keyed = np.flatnonzero(~np.isnan(f[:, 0]))
+        rows.append(int(keyed[-1]) + 1 if len(keyed) else 0)
+    n_f = max(max(k + (k < f.shape[0]) for k, f in zip(rows, frames)), 1)
+    n_f = -(-n_f // 512) * 512
+    desc = torch.full((n_frames, n_f, 128), -128, dtype=torch.int8, device=dev)
+    hpts = torch.zeros((n_frames, n_f, 3), dtype=torch.float32, device=dev)
     hpts[:, :, 2] = 1.0
-    for fidx, f in enumerate(frames):
-        f = np.asarray(f)
-        k = f.shape[0]
-        d = np.nan_to_num(f[:, 4:])
-        if not _is_uint8_valued(d):
-            return None
-        desc[fidx, :k] = (d - 128.0).astype(np.int8)
-        hpts[fidx, :k, :2] = np.nan_to_num(f[:, :2])
-    return {
-        "desc": torch.as_tensor(desc, device=dev),
-        "hpts": torch.as_tensor(hpts, device=dev),
-        "n_f": n_f,
-    }
+    uint8_valued = torch.ones((), dtype=torch.bool, device=dev)
+    h2d_bytes = 0
+    for fidx, (f, k) in enumerate(zip(frames, rows)):
+        if k == 0:
+            continue
+        head = np.ascontiguousarray(f[:k])
+        h2d_bytes += head.nbytes
+        # from pageable memory the copy has left the host buffer when the call
+        # returns: non_blocking only spares a synchronisation a frame
+        head = torch.from_numpy(head).to(dev, non_blocking=True)
+        d = torch.nan_to_num(head[:, 4:])
+        uint8_valued &= ((d >= 0) & (d <= 255) & (d == torch.round(d))).all()
+        desc[fidx, :k] = d - 128.0
+        hpts[fidx, :k, :2] = torch.nan_to_num(head[:, :2])
+    packed = bool(uint8_valued)
+    if counts is not None:
+        counts.update(rows_given=sum(f.shape[0] for f in frames), rows_staged=sum(rows),
+                      h2d_bytes=h2d_bytes, route="device" if packed else "declined")
+    if not packed:
+        return None
+    return {"desc": desc, "hpts": hpts, "n_f": n_f}
 
 
 def staged_chunk_arrays(chunk, n1, n2, pair_frames, pair_idx, pair_F, epipolar_thr):
@@ -273,6 +298,8 @@ def staged_chunk_operands(staged, arrays):
     thr) in the nn2_batched_i8 layout."""
     dev = staged["desc"].device
     frame_i, ii, mi, frame_j, jj, mj, Fmat, thr = [torch.as_tensor(a, device=dev) for a in arrays]
+    # an index past a frame's staged rows reads its padding row n_f - 1
+    ii, jj = torch.clamp(ii, max=staged["n_f"] - 1), torch.clamp(jj, max=staged["n_f"] - 1)
     di = staged["desc"][frame_i[:, None], ii]  # (B, n1, 128) int8
     dj = staged["desc"][frame_j[:, None], jj]  # (B, n2, 128)
     hi = staged["hpts"][frame_i[:, None], ii]  # (B, n1, 3)

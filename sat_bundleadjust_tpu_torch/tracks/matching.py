@@ -400,9 +400,10 @@ def match_stereo_pairs(pairs_to_match, features, footprints, utm_coords, tracks_
         if staged_intent:
             frames_used = sorted({f for ij in to_match_frames for f in ij})
             fmap = {f: k for k, f in enumerate(frames_used)}
-            with span("matching.stage", timing, "stage_s", frames=len(frames_used)):
+            with span("matching.stage", timing, "stage_s", frames=len(frames_used)) as stage:
                 staged = match_ops.stage_frames_for_matching(
-                    [frame_cache.get(f, features[f]) for f in frames_used], device=dev)
+                    [frame_cache.get(f, features[f]) for f in frames_used], device=dev,
+                    counts=stage.attrs)
             if staged is not None:
                 with span("matching.nn", timing, "nn_s", pairs=len(to_match)):
                     nn_results = match_ops.match_pairs_2nn_staged(

@@ -553,6 +553,100 @@ def test_cv2_descriptors_through_the_int8_kernel(cuda):
     assert bool((found["on"] >= found["off"]).all()) and bool((found["on"] > found["off"]).any())
 
 
+def _padded_frames(seed=5):
+    """Frames as the detector writes them: float64, NaN-padded to 20 000
+    rows past 5 000, 6 500 and 3 800 keypoints with integer descriptors; a
+    fourth frame with a NaN row among its keypoints, and a fifth that is all
+    NaN."""
+    rng = np.random.RandomState(seed)
+    frames = []
+    for k in (5000, 6500, 3800, 4200, 0):
+        f = np.full((20000, 132), np.nan)
+        f[:k, :2] = rng.rand(k, 2) * 2000
+        f[:k, 2:4] = rng.rand(k, 2)
+        f[:k, 4:] = rng.randint(0, 256, size=(k, 128))
+        frames.append(f)
+    frames[3][1000] = np.nan
+    return frames
+
+
+@pytest.mark.cuda
+def test_staging_on_the_card_equals_the_cpu(cuda):
+    """stage_frames_for_matching of padded frames on the card: the CPU's
+    tables bit for bit (n_f 6 656, not 20 480), one read of the device a
+    call, and the CPU's kernel operands from the tables, indices into the
+    padding (past the table too) included."""
+    import warnings
+
+    from sat_bundleadjust_tpu_torch.ops import match as mo
+
+    frames = _padded_frames()
+    host = mo.stage_frames_for_matching(frames, device="cpu")
+    counts = {}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            card = mo.stage_frames_for_matching(frames, device=cuda, counts=counts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert len(syncs) == 1, [str(w.message) for w in caught]
+    assert card["n_f"] == host["n_f"] == 6656
+    assert torch.equal(card["desc"].cpu(), host["desc"])
+    assert torch.equal(card["hpts"].cpu(), host["hpts"])
+    assert counts == {"rows_given": 5 * 20000, "rows_staged": 19500,
+                      "h2d_bytes": 19500 * 132 * 8, "route": "device"}
+    pair_frames = [(0, 1), (3, 2), (1, 4)]
+    pair_idx = [(np.arange(0, 5000), np.r_[np.arange(0, 7000), 19999]),
+                (np.arange(0, 4200), np.arange(0, 3800)),
+                (np.arange(6000, 6600), np.arange(0, 100))]
+    F = np.array([[0.0, 1e-4, -0.02], [-1e-4, 0.0, 0.03], [0.02, -0.03, 1.0]], np.float32)
+    for chunk, n1, n2 in mo.staged_chunks(pair_idx):
+        arrays = mo.staged_chunk_arrays(chunk, n1, n2, pair_frames, pair_idx, [F, None, F],
+                                        mo.EPIPOLAR_THR)
+        for g, h in zip(mo.staged_chunk_operands(card, arrays),
+                        mo.staged_chunk_operands(host, arrays)):
+            assert torch.equal(g.cpu(), h)
+
+
+@pytest.mark.cuda
+def test_matching_stage_span_on_the_card(cuda, tmp_path):
+    """The tracks pipeline on the card, frames padded to FT_kp_max 8 000:
+    its `matching.stage` span stages on the device fewer rows than the
+    frames have."""
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from sat_bundleadjust_tpu_torch.models.cameras import SatelliteImage
+    from sat_bundleadjust_tpu_torch.tracks.pipeline import FeatureTracksPipeline
+    from sat_bundleadjust_tpu_torch.utils import profiling
+
+    ims, rpcs = demo.render_synthetic_images(n_cam=3, h=300, w=400, seed=0, alt=0.0, device=cuda)
+    images = []
+    for k, (im, rpc) in enumerate(zip(ims, rpcs)):
+        path = str(tmp_path / "im{}.tif".format(k))
+        Image.fromarray((im * 255).astype(np.uint8)).save(path)
+        images.append(SatelliteImage(path, rpc, offset={"col0": 0, "row0": 0, "height": 300,
+                                                        "width": 400}))
+        images[-1].set_footprint(alt=50.0)
+        images[-1].set_camera_center()
+    out = str(tmp_path / "out")
+    ft = FeatureTracksPipeline(out, out, {"images": images, "n_adj": 0, "aoi": None},
+                               tracks_config={"FT_kp_max": 8000, "FT_save": False,
+                                              "FT_reset": True}, device=cuda)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        bundle, _ = ft.build_feature_tracks()
+    stage = [s[5] for s in profiling.spans() if s[2] == "matching.stage"]
+    profiling.reset()
+    assert bundle["C"].shape[1] > 100
+    assert len(stage) == 1 and stage[0]["route"] == "device" and stage[0]["frames"] == 3
+    assert 0 < stage[0]["rows_staged"] < stage[0]["rows_given"] == 3 * 8000
+    assert stage[0]["h2d_bytes"] == stage[0]["rows_staged"] * 132 * 8
+
+
 @pytest.mark.cuda
 def test_stereo_on_the_card_matches_cpu(cuda):
     """models/stereo on the card against the CPU, rtol 1e-12 (the card's and

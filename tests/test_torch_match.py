@@ -594,6 +594,102 @@ def test_match_pairs_2nn_staged_matches_jax():
     assert sum(int(a.sum()) for _, a in got) > 300
 
 
+def _padded_frames():
+    """_frames() as the detector writes frames: float64, NaN-padded to 4 096
+    rows; a fourth frame with a NaN row among its keypoints, and a fifth that
+    is all NaN."""
+    frames = _frames()
+    frames.append(frames[0][:420].copy())
+    frames[3][200] = np.nan
+    padded = []
+    for f in frames + [np.zeros((0, 132))]:
+        p = np.full((4096, 132), np.nan)
+        p[: len(f)] = f
+        padded.append(p)
+    return padded
+
+
+_PADDED_PAIRS = {
+    # the UTM boxes' row subsets, and indices into the padding: past a
+    # frame's keypoints inside the staged table (520-699 of frame 0), past
+    # the table (4 000), a frame's NaN row (200 of frame 3), a frame of
+    # padding only (frame 4)
+    "pair_frames": [(0, 1), (1, 2), (0, 2), (3, 1), (0, 4)],
+    "pair_idx": [(np.arange(0, 450), np.arange(0, 600)),
+                 (np.arange(50, 640), np.arange(0, 380)),
+                 (np.r_[np.arange(0, 700), 4000], np.arange(10, 370)),
+                 (np.arange(0, 420), np.r_[np.arange(0, 300), 4000]),
+                 (np.arange(0, 100), np.arange(0, 64))],
+    "Fs": [None,
+           np.array([[0.0, 1e-4, -0.02], [-1e-4, 0.0, 0.03], [0.02, -0.03, 1.0]], np.float32),
+           np.array([[0.0, -2e-4, 0.01], [2e-4, 0.0, -0.04], [-0.01, 0.04, 1.0]], np.float32),
+           None, None],
+}
+
+
+def test_stage_frames_stages_the_keypoint_rows():
+    """Frames padded far past their keypoints stage only their keypoint rows
+    (n_f 1 024, not 4 096); those rows are JAX's staged rows, and the rows
+    below n_f past a frame's keypoints are its padding, as there."""
+    frames = _padded_frames()
+    counts = {}
+    staged = tmatch.stage_frames_for_matching(frames, device="cpu", counts=counts)
+    assert staged["n_f"] == 1024
+    want = jmatch.stage_frames_for_matching(frames)
+    assert want["n_f"] == 4096
+    np.testing.assert_array_equal(staged["desc"].numpy(), np.asarray(want["desc"])[:, :1024])
+    np.testing.assert_array_equal(staged["hpts"].numpy(), np.asarray(want["hpts"])[:, :1024])
+    rows = 500 + 650 + 380 + 420
+    assert counts == {"rows_given": 5 * 4096, "rows_staged": rows, "h2d_bytes": rows * 132 * 8,
+                      "route": "device"}
+
+
+def test_staged_operands_equal_the_whole_tables():
+    """The kernel's operands gathered from the keypoint rows equal, bit for
+    bit, those gathered from tables of every row of the frames (JAX's
+    staging); an index into the padding, within the table or past it, gives
+    descriptor -128 and point (0, 0, 1)."""
+    frames = _padded_frames()
+    staged = tmatch.stage_frames_for_matching(frames, device="cpu")
+    full = jmatch.stage_frames_for_matching(frames)
+    full = {"desc": _t(np.array(full["desc"])), "hpts": _t(np.array(full["hpts"])),
+            "n_f": full["n_f"]}
+    pp = _PADDED_PAIRS
+    seen = set()
+    for chunk, n1, n2 in tmatch.staged_chunks(pp["pair_idx"], max_bytes=8 << 20):
+        arrays = tmatch.staged_chunk_arrays(chunk, n1, n2, pp["pair_frames"], pp["pair_idx"],
+                                            pp["Fs"], tmatch.EPIPOLAR_THR)
+        got = tmatch.staged_chunk_operands(staged, arrays)
+        want = tmatch.staged_chunk_operands(full, arrays)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        for b, q in enumerate(chunk):
+            if q == 2:  # (0, 2): rows 500-699 and 4 000 of frame 0 are padding
+                assert bool((got[0][b, 500:701] == -128).all())
+                assert bool((got[2][b, 500:701] == _t(pp["Fs"][2][:, 2])).all())
+            if q == 3:  # (3, 1): column 300 is frame 1's row 4 000
+                assert bool((got[1][b, 300] == -128).all())
+                assert torch.equal(got[3][b, 300], torch.tensor([0.0, 0.0, 1.0]))
+        seen.update(chunk)
+    assert seen == set(range(5))
+
+
+def test_match_pairs_2nn_staged_padded_frames_match_jax():
+    """The staged matcher on padded frames gives JAX's staged matcher's
+    (nn, accepted) exactly, indices into the padding included."""
+    frames = _padded_frames()
+    pp = _PADDED_PAIRS
+    want = jmatch.match_pairs_2nn_staged(jmatch.stage_frames_for_matching(frames),
+                                         pp["pair_frames"], pp["pair_idx"], pp["Fs"],
+                                         rel_thr=0.8, interpret=True)
+    got = tmatch.match_pairs_2nn_staged(tmatch.stage_frames_for_matching(frames, device="cpu"),
+                                        pp["pair_frames"], pp["pair_idx"], pp["Fs"], rel_thr=0.8)
+    for (nn_g, acc_g), (nn_w, acc_w) in zip(got, want):
+        np.testing.assert_array_equal(acc_g, acc_w)
+        np.testing.assert_array_equal(nn_g, nn_w)
+    assert sum(int(a.sum()) for _, a in got[:4]) > 300
+
+
 def test_host_packing_matches_jax():
     """pack_pairs, int8_packable and accept_from_packed give JAX's arrays."""
     frames = _frames(seed=6)
@@ -616,6 +712,18 @@ def test_stage_frames_declines_non_integer_descriptors():
     f = np.zeros((32, 132), np.float32)
     f[:, 4:] = 0.5
     assert tmatch.stage_frames_for_matching([f], device="cpu") is None
+
+
+@pytest.mark.parametrize("bad", [3.5, 256.0, -1.0])
+def test_stage_frames_declines_in_the_last_keypoint_row(bad):
+    """One descriptor value that is not an integer in 0..255, in a padded
+    frame's last keypoint row, declines the whole call."""
+    frames = _padded_frames()
+    frames[2][379, 70] = bad
+    counts = {}
+    assert tmatch.stage_frames_for_matching(frames, device="cpu", counts=counts) is None
+    assert jmatch.stage_frames_for_matching(frames) is None
+    assert counts["route"] == "declined"
 
 
 @pytest.mark.parametrize("gate", [False, True])
